@@ -1,0 +1,127 @@
+"""Build and load the kernels' shared library at first use.
+
+JAX counterpart: none; ``snappy_tpu/ops/host_codec._build`` is the model
+(a content-hashed shared object loaded with ctypes).
+
+``cuda_lib()`` compiles ``csrc/*.cu`` with nvcc for sm_90a into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds) and loads it with ctypes.  ``twin_lib()`` compiles the same
+sources with g++ into the CPU twin that the tests load; the port's path
+never uses it.  Both go to ``build/snappy_tpu_torch/`` at the root of the
+checkout, named by a hash of the sources and the command, under a file
+lock so that concurrent test workers do not race the build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).parent / "csrc"
+SOURCES = ("crc32c.cu", "decode_chunks.cu", "encode_blocks.cu")
+HEADERS = ("snappy_common.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snappy_tpu_torch"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+# C entry points and their arguments (pointers and the stream as c_void_p).
+# The twin takes the same arguments without the trailing stream.
+_ENTRY_POINTS: Dict[str, List] = {
+    "crc32c_chunks": [_P, _I64, _P, _I, _P, _P, _P, _P],
+    "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
+    "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _build(name: str, cmd: List[str]) -> Path:
+    """Compile the sources with ``cmd`` (the output path is appended) into
+    BUILD_DIR, unless a library of the same sources and command is there.
+    The compiler's output goes to a ``.log`` beside the library."""
+    digest = hashlib.sha256(repr(cmd).encode())
+    for f in SOURCES + HEADERS:
+        digest.update((CSRC / f).read_bytes())
+    so = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+                tmp = Path(td) / "lib.so"
+                proc = subprocess.run(
+                    cmd + ["-o", str(tmp)] + [str(CSRC / f) for f in SOURCES],
+                    capture_output=True,
+                    text=True,
+                )
+                so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"building {name} failed ({proc.returncode}):\n"
+                        + proc.stderr[-4000:]
+                    )
+                os.replace(tmp, so)
+    return so
+
+
+def _load(so: Path, prefix: str, with_stream: bool) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, args in _ENTRY_POINTS.items():
+        fn = getattr(lib, prefix + name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args if with_stream else args[:-1]
+    return lib
+
+
+@functools.cache
+def cuda_lib() -> ctypes.CDLL:
+    """The kernels for the card (nvcc, sm_90a)."""
+    cmd = [
+        _nvcc(),
+        "-gencode", "arch=compute_90a,code=sm_90a",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v",
+    ]
+    return _load(_build("kernels_sm90a", cmd), "stpu_", with_stream=True)
+
+
+def cuda_build_log() -> str:
+    """What nvcc printed when it built ``cuda_lib`` (registers, spills)."""
+    logs = sorted(BUILD_DIR.glob("kernels_sm90a_*.log"), key=os.path.getmtime)
+    return logs[-1].read_text() if logs else ""
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the entry point ``stpu_<name>`` with ``args`` and the current
+    stream of ``device``; raise if it reports a CUDA error (a refused launch
+    never runs, and a later synchronize would not say so)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(cuda_lib(), "stpu_" + name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel: CUDA error {rc} at launch")
+
+
+@functools.cache
+def twin_lib() -> ctypes.CDLL:
+    """The CPU twin of the same sources (g++), for the tests only."""
+    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-x", "c++"]
+    return _load(_build("twin_cpu", cmd), "stpu_twin_", with_stream=False)

@@ -1,0 +1,106 @@
+// Shared helpers of the codec kernels: byte-wise loads, the match hash and
+// the tag emitters, all __host__ __device__.
+//
+// The per-chunk bodies in crc32c.cu, decode_chunks.cu and encode_blocks.cu
+// are written against these helpers so that one source compiles twice:
+// with nvcc for sm_90a (the kernels the port launches) and with g++ into the
+// CPU twin the tests load (no __CUDACC__: the shim below turns the CUDA
+// qualifiers into plain inline functions).  The twin is never on the
+// port's path.
+//
+// Every multi-byte load is assembled from byte loads or made at an aligned
+// address: a cast load at an arbitrary address faults on the card
+// ("misaligned address"), where the host C codec (snappy_codec.c) loads
+// 4 and 8 bytes anywhere.
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define STPU_HD __host__ __device__ __forceinline__
+#else
+#define STPU_HD static inline
+#endif
+
+#define STPU_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace stpu {
+
+constexpr uint32_t kMaxBlock = 65536;      // MAX_BLOCK_LEN
+constexpr uint32_t kInputMargin = 15;      // INPUT_MARGIN
+constexpr uint32_t kMinNonLiteral = 17;    // MIN_NON_LITERAL_BLOCK_SIZE
+constexpr uint32_t kTableBits = 14;        // encoder hash table: 16 K entries
+constexpr uint32_t kTableSize = 1u << kTableBits;
+constexpr uint32_t kHashMul = 0x1E35A7BDu;
+
+// Little-endian 32-bit load from any address, one byte at a time.
+STPU_HD uint32_t load_le32(const uint8_t* p) {
+  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
+         ((uint32_t)p[3] << 24);
+}
+
+// Little-endian 32-bit load from a 4-byte aligned address.
+STPU_HD uint32_t load_aligned32(const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const uint32_t*>(p);
+#else
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+#endif
+}
+
+// The encoder's hash: the top bits of u * 0x1e35a7bd (shift = 32 - log2 of
+// the table size), encode_scalar.py:25-28 and snappy_codec.c:41-43.
+STPU_HD uint32_t hash32(uint32_t u, uint32_t shift) {
+  return (u * kHashMul) >> shift;
+}
+
+// Literal tag + bytes (snappy_codec.c:47-75), written exactly: no blind
+// bursts past the literal's end.  Returns the new output position.
+STPU_HD uint32_t emit_literal(uint8_t* out, uint32_t op, const uint8_t* lit,
+                              uint32_t len) {
+  const uint32_t n = len - 1;
+  if (n < 60) {
+    out[op++] = (uint8_t)(n << 2);
+  } else if (n < 256) {
+    out[op++] = (uint8_t)(60 << 2);
+    out[op++] = (uint8_t)n;
+  } else {
+    out[op++] = (uint8_t)(61 << 2);
+    out[op++] = (uint8_t)(n & 0xFF);
+    out[op++] = (uint8_t)(n >> 8);
+  }
+  for (uint32_t k = 0; k < len; ++k) out[op + k] = lit[k];
+  return op + len;
+}
+
+STPU_HD uint32_t emit_copy2(uint8_t* out, uint32_t op, uint32_t offset,
+                            uint32_t len) {
+  out[op] = (uint8_t)(((len - 1) << 2) | 2);
+  out[op + 1] = (uint8_t)(offset & 0xFF);
+  out[op + 2] = (uint8_t)(offset >> 8);
+  return op + 3;
+}
+
+// Copy tags with the 68/64/60 long-copy split and copy-1 for short near
+// copies (snappy_codec.c:84-102).
+STPU_HD uint32_t emit_copy(uint8_t* out, uint32_t op, uint32_t offset,
+                           uint32_t len) {
+  while (len >= 68) {
+    op = emit_copy2(out, op, offset, 64);
+    len -= 64;
+  }
+  if (len > 64) {
+    op = emit_copy2(out, op, offset, 60);
+    len -= 60;
+  }
+  if (len >= 12 || offset >= 2048) return emit_copy2(out, op, offset, len);
+  out[op] = (uint8_t)(((offset >> 8) << 5) | (((len - 4) & 7) << 2) | 1);
+  out[op + 1] = (uint8_t)(offset & 0xFF);
+  return op + 2;
+}
+
+}  // namespace stpu
