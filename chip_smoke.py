@@ -1,32 +1,44 @@
-"""Drive the port's framed main path once on one CUDA card and check it.
+"""Drive the port's framed and raw main paths once on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
 
 1. setup    — torch and CUDA versions, the card, its name and power limit;
-2. build    — nvcc builds the three kernels from snappy_tpu_torch/ops/csrc
-              into build/snappy_tpu_torch/ (first use);
-3. kernels  — each kernel against its plain version on 8 chunks (text,
-              SSZ-like records, runs, period 8, random, a 64 KiB block, a
-              17-byte block, an empty block), and the decoder also on
-              malformed and truncated tag streams; equal, or it fails;
-4. main     — encode_framed / decode_framed of the seeded 48 MiB mixed
-              payload on the card: the stream's SHA-256 equals the digest
-              pinned from the JAX package and decodes back to the payload;
-              then the error-order cases and check_integrity=False;
-5. counters — each kernel was launched by the main path;
-6. timings  — each kernel at main-path shapes (768 chunks) and on the
-              8-chunk set beside its plain version, and the end-to-end
-              framed encode and decode rates.
+2. build    — nvcc builds the four kernel sources from
+              snappy_tpu_torch/ops/csrc into build/snappy_tpu_torch/ (first
+              use, one nvcc per source, all at once);
+3. kernels  — each kernel against its plain version: CRC32C, the level-1
+              and level-2 block encoders and the chunk decoder on 8 chunks
+              (text, SSZ-like records, runs, period 8, random, a 64 KiB
+              block, a 17-byte block, an empty block), the chunk decoder
+              also on malformed and truncated streams; the chunk decoder at
+              its 128 KiB big-window shape on payloads.big_window_cases and
+              the streaming decoder on payloads.stream_cases (segments
+              across window edges, far copies, mutants); equal, or it fails;
+4. framed   — encode_framed / decode_framed of the seeded 48 MiB mixed
+              payload: the stream's SHA-256 equals the digest pinned from
+              the JAX package and decodes back to the payload; then the
+              error-order cases and check_integrity=False;
+5. raw      — encode of the payload at levels 1 and 2 (SHA-256 equal to the
+              pinned JAX digests), decode of the level-1 stream (the
+              streaming decoder), encode_batch against per-payload encode,
+              decode_batch of the seeded serving batch against the plain
+              versions, compress_into / uncompress_into, and
+              encode_framed(level=2) against its digest;
+6. counters — each kernel was launched by its main path (4 or 5), the
+              counts set to 0 just before each path and read just after;
+7. timings  — each kernel at its main-path shape and on its small set
+              beside its plain version, and the end-to-end rates.
 
 Any failure raises and the exit code is not 0.  The line before the last
-is a JSON object of the kernels: per kernel, the main path's launch count,
-the largest difference from its plain version, ``ms`` (one launch over the
-768 main-path chunks), ``plain_ms`` (the plain version over the 8-chunk
-set) and ``ms_8_chunks`` (the kernel over that same set).  The last line
-is the JSON result.  Exits nonzero, printing no result, where torch.cuda
-is not available.
+is a JSON object of the kernels: per kernel, the launch count of its main
+path, the largest difference from its plain version, ``ms`` (one launch at
+the main-path shape), ``plain_ms`` (the plain version on the small set) and
+``ms_small`` (the kernel on that same set).  The last line is the JSON
+result.  Exits nonzero, printing no result, where torch.cuda is not
+available.
 """
 
 from __future__ import annotations
@@ -42,13 +54,19 @@ import numpy as np
 import torch
 
 KERNELS = {
-    # name: (CUDA source, the TPU kernel it replaces)
+    # name: (CUDA source, the TPU kernel it replaces, its main path)
     "crc32c": ("snappy_tpu_torch/ops/csrc/crc32c.cu",
-               "snappy_tpu/ops/crc32c_pallas.py:52"),
+               "snappy_tpu/ops/crc32c_pallas.py:52", "framed"),
     "decode_chunks": ("snappy_tpu_torch/ops/csrc/decode_chunks.cu",
-                      "snappy_tpu/ops/decode_scalar.py:151"),
+                      "snappy_tpu/ops/decode_scalar.py:151", "framed"),
     "encode_blocks": ("snappy_tpu_torch/ops/csrc/encode_blocks.cu",
-                      "snappy_tpu/ops/encode_scalar.py:56"),
+                      "snappy_tpu/ops/encode_scalar.py:56", "framed"),
+    "encode_blocks_l2": ("snappy_tpu_torch/ops/csrc/encode_blocks.cu",
+                         "snappy_tpu/ops/encode_scalar.py:56", "raw"),
+    "decode_chunks_big": ("snappy_tpu_torch/ops/csrc/decode_chunks.cu",
+                          "snappy_tpu/ops/decode_scalar.py:450", "raw"),
+    "decode_stream": ("snappy_tpu_torch/ops/csrc/decode_stream.cu",
+                      "snappy_tpu/ops/decode_stream.py:799", "raw"),
 }
 
 
@@ -81,6 +99,20 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
+def e2e(fn, reps=3):
+    """(best, median) host seconds of fn(), ended by a synchronize, after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return min(times), statistics.median(times)
+
+
 def ragged(bodies):
     """(comp uint8, offsets int64 [N + 1]) of a list of tag streams."""
     offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
@@ -104,10 +136,25 @@ def main() -> None:
     from snappy_tpu_torch import api, engine
     from snappy_tpu_torch.formats import constants as C
     from snappy_tpu_torch.formats import framing, varint
-    from snappy_tpu_torch.ops import _build, crc32c, decode_chunks, encode_blocks
+    from snappy_tpu_torch.ops import (
+        _build, crc32c, decode_chunks, decode_stream, encode_blocks, host_codec,
+    )
     from snappy_tpu_torch.testing import payloads
 
-    mods = {"crc32c": crc32c, "decode_chunks": decode_chunks, "encode_blocks": encode_blocks}
+    def counts():
+        return {
+            "crc32c": crc32c.LAUNCHES,
+            "decode_chunks": decode_chunks.LAUNCHES,
+            "encode_blocks": encode_blocks.LAUNCHES,
+            "encode_blocks_l2": encode_blocks.LAUNCHES_L2,
+            "decode_chunks_big": decode_chunks.LAUNCHES_BIG,
+            "decode_stream": decode_stream.LAUNCHES,
+        }
+
+    def reset_counts():
+        crc32c.LAUNCHES = decode_chunks.LAUNCHES = decode_chunks.LAUNCHES_BIG = 0
+        encode_blocks.LAUNCHES = encode_blocks.LAUNCHES_L2 = decode_stream.LAUNCHES = 0
+
     dev = torch.device("cuda:0")
     card = card_label()
     tag = f"[{card}]"
@@ -118,10 +165,13 @@ def main() -> None:
     # 2. build ---------------------------------------------------------------
     t = time.perf_counter()
     _build.cuda_lib()
-    print(f"build: {time.perf_counter() - t:.2f} s (nvcc sm_90a, 3 kernels)")
+    print(f"build: {time.perf_counter() - t:.2f} s (nvcc sm_90a, {len(_build.SOURCES)} sources)")
     for line in _build.cuda_build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("build: ptxas" + line.split("ptxas", 1)[-1])
+    t = time.perf_counter()
+    host_codec.lib()
+    print(f"build: {time.perf_counter() - t:.2f} s (cc, the native host runtime)")
 
     # 3. kernels against their plain versions, on the card -------------------
     named = payloads.smoke_blocks()
@@ -135,17 +185,21 @@ def main() -> None:
     err["crc32c"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     assert torch.equal(got, want), ("crc32c", got, want)
 
-    enc, elen = encode_blocks.encode_blocks(frames, lens)
-    enc, elen = enc.cpu(), elen.cpu()
-    penc, pelen = encode_blocks._encode_blocks_plain(frames_h, lens_h)
-    assert torch.equal(elen, pelen), ("encode_blocks lengths", elen, pelen)
-    e_err = 0
-    for k, n in enumerate(elen.tolist()):
-        d = (enc[k, :n].to(torch.int32) - penc[k, :n].to(torch.int32)).abs()
-        e_err = max(e_err, int(d.max()) if n else 0)
-    err["encode_blocks"] = e_err
-    assert e_err == 0, "encode_blocks bytes differ from the plain version"
-    streams = [enc[k, :n].numpy().tobytes() for k, n in enumerate(elen.tolist())]
+    streams = {}
+    for name, level in (("encode_blocks", 1), ("encode_blocks_l2", 2)):
+        enc, elen = encode_blocks.encode_blocks(frames, lens, level)
+        enc, elen = enc.cpu(), elen.cpu()
+        penc, pelen = encode_blocks._encode_blocks_plain(frames_h, lens_h, level)
+        assert torch.equal(elen, pelen), (name, "lengths", elen, pelen)
+        e_err = 0
+        for k, n in enumerate(elen.tolist()):
+            d = (enc[k, :n].to(torch.int32) - penc[k, :n].to(torch.int32)).abs()
+            e_err = max(e_err, int(d.max()) if n else 0)
+        err[name] = e_err
+        assert e_err == 0, f"{name} bytes differ from the plain version"
+        streams[level] = [enc[k, :n].numpy().tobytes() for k, n in enumerate(elen.tolist())]
+    assert sum(map(len, streams[2])) < sum(map(len, streams[1])), "level 2 is not denser"
+    streams = streams[1]
 
     cases = [(s, len(b)) for s, b in zip(streams, blocks)]
     cases += payloads.malformed_chunks()
@@ -165,21 +219,54 @@ def main() -> None:
     for k, b in enumerate(blocks):
         assert bool(ok[k]) and out[k, : len(b)].numpy().tobytes() == b, ("roundtrip", k)
     assert not bool(ok[len(blocks):].any()), "a malformed or truncated stream decoded"
-    print(f"kernels: crc32c, encode_blocks, decode_chunks equal their plain versions "
-          f"on {len(blocks)} blocks and {len(cases) - len(blocks)} malformed/truncated "
-          f"streams (tolerance: exact)")
 
-    # 4. main path -----------------------------------------------------------
+    big_cases = payloads.big_window_cases()
+    bw_comp, bw_offs = ragged([c for c, _ in big_cases])
+    bw_decl = torch.tensor([n for _, n in big_cases], dtype=torch.int32)
+    BIG = decode_chunks.MAX_OUT
+    out = torch.empty((len(big_cases), BIG), dtype=torch.uint8, device=dev)
+    ok, written = decode_chunks.decode_chunks(bw_comp.to(dev), bw_offs.to(dev), bw_decl.to(dev), out)
+    bw_pout = torch.empty((len(big_cases), BIG), dtype=torch.uint8)
+    pok, pwritten = decode_chunks._decode_chunks_plain(bw_comp, bw_offs, bw_decl, bw_pout)
+    ok, written, out = ok.cpu(), written.cpu(), out.cpu()
+    assert torch.equal(ok, pok) and torch.equal(written, pwritten), "decode_chunks_big verdicts"
+    err["decode_chunks_big"] = int((out.to(torch.int32) - bw_pout.to(torch.int32)).abs().max())
+    assert err["decode_chunks_big"] == 0, "decode_chunks_big bytes differ from the plain version"
+    assert bool(ok[:3].all()) and not bool(ok[3]), "big-window verdicts"
+
+    st_cases = payloads.stream_cases()
+    st_dev = []  # (comp on the card, declared, out on the card) per case
+    s_err = 0
+    for body, m, payload in st_cases:
+        comp_d = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()).to(dev)
+        out_d = torch.zeros(max(m, 1), dtype=torch.uint8, device=dev)
+        status = decode_stream.decode_stream(comp_d, m, out_d).cpu().tolist()
+        pout_s = torch.zeros(max(m, 1), dtype=torch.uint8)
+        pstatus = decode_stream._decode_stream_plain(torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()), m, pout_s).tolist()
+        assert status == pstatus, ("decode_stream status", len(body), m, status, pstatus)
+        w = status[1]
+        d = (out_d[:w].cpu().to(torch.int32) - pout_s[:w].to(torch.int32)).abs()
+        s_err = max(s_err, int(d.max()) if w else 0)
+        if payload is not None:
+            assert status == [1, m, len(body)] and out_d[:m].cpu().numpy().tobytes() == payload
+        st_dev.append((comp_d, m, out_d))
+    err["decode_stream"] = s_err
+    assert s_err == 0, "decode_stream bytes differ from the plain version"
+    print(f"kernels: crc32c, encode_blocks (levels 1 and 2), decode_chunks equal their plain "
+          f"versions on {len(blocks)} blocks and {len(cases) - len(blocks)} malformed/truncated "
+          f"streams; decode_chunks at W={BIG} on {len(big_cases)} big-window cases; "
+          f"decode_stream on {len(st_cases)} stream cases (tolerance: exact)")
+
+    # 4. framed main path ----------------------------------------------------
     payload = payloads.mixed_payload()
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    reset_counts()
     stream = api.encode_framed(payload, device=dev)
     decoded = api.decode_framed(stream, device=dev)
-    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    framed_launches = counts()
     digest = hashlib.sha256(stream).hexdigest()
     assert digest == payloads.GOLDEN_SHA256, ("digest", digest)
     assert decoded == payload, "decode_framed did not return the payload"
-    print(f"main: {len(payload)} bytes -> {len(stream)} framed bytes, sha256 {digest} "
+    print(f"framed: {len(payload)} bytes -> {len(stream)} framed bytes, sha256 {digest} "
           f"equals the pinned JAX digest; decodes back to the payload")
 
     chunks = framing.scan_frames(stream, len(C.FRAMING_HEADER))
@@ -205,15 +292,64 @@ def main() -> None:
     bad = corrupt(stream, a, None)
     assert api.decode_framed(bad, device=dev) == b""
     assert api.decode_framed(bad, check_integrity=False, device=dev) == payload
-    print("main: error order ok (crc@5 + invalid@9 -> crc; invalid@5 + crc@9 -> "
+    print("framed: error order ok (crc@5 + invalid@9 -> crc; invalid@5 + crc@9 -> "
           "invalid); check_integrity=False accepts the bad CRC")
 
-    # 5. counters ------------------------------------------------------------
-    print(f"counters: main-path launches {launches}")
-    for name, n in launches.items():
-        assert n > 0, f"the main path never launched {name}"
+    # 5. raw main path -------------------------------------------------------
+    captured = {}
 
-    # 6. timings -------------------------------------------------------------
+    def encode_batch_on_card(ps):
+        captured["in"], captured["out"] = ps, api.encode_batch(ps, device=dev)
+        return captured["out"]
+
+    reset_counts()
+    raw1 = api.encode(payload, level=1, device=dev)
+    raw2 = api.encode(payload, level=2, device=dev)
+    raw_decoded = api.decode(raw1, device=dev)
+    serving, expect = payloads.serving_batch(encode_batch_on_card)
+    batch_out = api.decode_batch(serving, device=dev)
+    one_mb = payload[: 1 << 20]
+    into = bytearray(C.max_compressed_len(len(one_mb)))
+    res_c = api.compress_into(one_mb, into, device=dev)
+    back = bytearray(len(one_mb))
+    res_u = api.uncompress_into(bytes(into[: res_c.value]), back, device=dev)
+    framed2 = api.encode_framed(payload, level=2, device=dev)
+    framed2_back = api.decode_framed(framed2, device=dev)
+    raw_launches = counts()
+
+    for name, s, pinned in (("raw L1", raw1, payloads.RAW_L1_SHA256),
+                            ("raw L2", raw2, payloads.RAW_L2_SHA256),
+                            ("framed L2", framed2, payloads.FRAMED_L2_SHA256)):
+        d = hashlib.sha256(s).hexdigest()
+        assert d == pinned, (name, d)
+        print(f"raw: {name} {len(payload)} bytes -> {len(s)} bytes, sha256 {d} equals the pinned JAX digest")
+    assert raw_decoded == payload, "decode did not return the payload"
+    assert framed2_back == payload, "decode_framed of the level-2 stream"
+    per_payload = [api.encode(p, device=dev) for p in captured["in"]]
+    assert captured["out"] == per_payload, "encode_batch differs from per-payload encode"
+    plain_batch = api.decode_batch(serving, device="cpu")
+    assert batch_out == plain_batch, "decode_batch differs from its plain versions"
+    assert batch_out == [e if e is not None else b"" for e in expect], "decode_batch payloads"
+    assert res_c.is_ok() and bytes(into[: res_c.value]) == api.encode(one_mb, device=dev)
+    assert res_u.is_ok() and res_u.value == len(one_mb) and bytes(back) == one_mb
+    n_bad = sum(e is None for e in expect)
+    print(f"raw: decode of the level-1 stream returns the payload; encode_batch of "
+          f"{len(captured['in'])} payloads equals per-payload encode; decode_batch of "
+          f"{len(serving)} streams ({len(serving) - n_bad} valid, {n_bad} malformed, "
+          f"{sum(map(len, serving))} bytes) equals the plain versions; compress_into / "
+          f"uncompress_into of 1 MiB round-trip; framed L2 decodes back")
+
+    # 6. counters ------------------------------------------------------------
+    print(f"counters: framed main path {framed_launches}")
+    print(f"counters: raw main path {raw_launches}")
+    for name in ("crc32c", "decode_chunks", "encode_blocks"):
+        assert framed_launches[name] > 0, f"the framed main path never launched {name}"
+    for name, n in raw_launches.items():
+        assert n > 0, f"the raw main path never launched {name}"
+    launches = {name: (framed_launches if path == "framed" else raw_launches)[name]
+                for name, (_, _, path) in KERNELS.items()}
+
+    # 7. timings -------------------------------------------------------------
     nf = payloads.MAIN_PATH_FRAMES
     arr = np.frombuffer(payload, dtype=np.uint8)[: nf * 65536]
     big = torch.from_numpy(arr.copy()).view(nf, 65536).to(dev)
@@ -229,13 +365,25 @@ def main() -> None:
     big_out = torch.empty((nf, 65536), dtype=torch.uint8, device=dev)
     big_ok = torch.empty(nf, dtype=torch.bool, device=dev)
     big_w = torch.empty(nf, dtype=torch.int32, device=dev)
-    main_shape = {
-        "crc32c": lambda: crc32c._launch(big, big_lens, crc_out),
-        "encode_blocks": lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen),
-        "decode_chunks": lambda: decode_chunks._launch(bcomp, boffs, big_lens, big_out, big_ok, big_w),
-    }
     decode_chunks._launch(bcomp, boffs, big_lens, big_out, big_ok, big_w)
     assert bool(big_ok.all()) and torch.equal(big_out, big), "768-chunk decode"
+
+    # the 8 unsplittable serving-batch streams at the big-window shape
+    first = payloads.SERVING_SMALL
+    straddle = serving[first : first + payloads.SERVING_STRADDLE]
+    sb_comp, sb_offs = ragged([payloads.body_of(s) for s in straddle])
+    sb_decl = torch.tensor([len(e) for e in expect[first : first + len(straddle)]], dtype=torch.int32)
+    sb_comp, sb_offs, sb_decl = sb_comp.to(dev), sb_offs.to(dev), sb_decl.to(dev)
+    sb_out = torch.empty((len(straddle), BIG), dtype=torch.uint8, device=dev)
+    sb_ok = torch.empty(len(straddle), dtype=torch.bool, device=dev)
+    sb_w = torch.empty(len(straddle), dtype=torch.int32, device=dev)
+    decode_chunks._launch(sb_comp, sb_offs, sb_decl, sb_out, sb_ok, sb_w)
+    assert bool(sb_ok.all()), "big-window serving streams"
+    # the whole 48 MiB level-1 stream through the streaming decoder
+    r_body = payloads.body_of(raw1)
+    r_comp = torch.from_numpy(np.frombuffer(r_body, dtype=np.uint8).copy()).to(dev)
+    r_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
+    r_status = torch.empty(3, dtype=torch.int64, device=dev)
 
     s_out = torch.empty(len(blocks), dtype=torch.uint32, device=dev)
     s_enc = torch.empty((len(blocks), encode_blocks.ENC_CAP), dtype=torch.uint8, device=dev)
@@ -245,49 +393,83 @@ def main() -> None:
     s_dout = torch.empty((len(blocks), 65536), dtype=torch.uint8, device=dev)
     s_ok = torch.empty(len(blocks), dtype=torch.bool, device=dev)
     s_w = torch.empty(len(blocks), dtype=torch.int32, device=dev)
-    small_kernel = {
-        "crc32c": lambda: crc32c._launch(frames, lens, s_out),
-        "encode_blocks": lambda: encode_blocks._launch(frames, lens, s_enc, s_elen),
-        "decode_chunks": lambda: decode_chunks._launch(s_comp, s_offs, lens, s_dout, s_ok, s_w),
-    }
+    bw_comp_d, bw_offs_d, bw_decl_d = bw_comp.to(dev), bw_offs.to(dev), bw_decl.to(dev)
+    bw_out = torch.empty((len(big_cases), BIG), dtype=torch.uint8, device=dev)
+    bw_ok = torch.empty(len(big_cases), dtype=torch.bool, device=dev)
+    bw_w = torch.empty(len(big_cases), dtype=torch.int32, device=dev)
+    st_status = torch.empty(3, dtype=torch.int64, device=dev)
     s_comp_h, s_offs_h = s_comp.cpu(), s_offs.cpu()
     s_pout = torch.empty((len(blocks), 65536), dtype=torch.uint8)
-    small_plain = {
-        "crc32c": lambda: crc32c._crc32c_plain(frames_h, lens_h),
-        "encode_blocks": lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h),
-        "decode_chunks": lambda: decode_chunks._decode_chunks_plain(s_comp_h, s_offs_h, lens_h, s_pout),
+    st_host = [(torch.from_numpy(np.frombuffer(b, dtype=np.uint8).copy()), m) for b, m, _ in st_cases]
+
+    def stream_set_kernel():
+        for comp_d, m, out_d in st_dev:
+            decode_stream._launch(comp_d, m, out_d, st_status)
+
+    def stream_set_plain():
+        for comp_h, m in st_host:
+            decode_stream._decode_stream_plain(comp_h, m, torch.empty(max(m, 1), dtype=torch.uint8))
+
+    timing = {
+        # name: (main-path shape, its description, bytes out, reps,
+        #        kernel on the small set, plain on the small set, small set)
+        "crc32c": (lambda: crc32c._launch(big, big_lens, crc_out),
+                   f"{nf} x 64 KiB chunks", nf * 65536, 10,
+                   lambda: crc32c._launch(frames, lens, s_out),
+                   lambda: crc32c._crc32c_plain(frames_h, lens_h), "8 chunks"),
+        "encode_blocks": (lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen),
+                          f"{nf} x 64 KiB blocks", nf * 65536, 10,
+                          lambda: encode_blocks._launch(frames, lens, s_enc, s_elen),
+                          lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h), "8 blocks"),
+        "encode_blocks_l2": (lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen, 2),
+                             f"{nf} x 64 KiB blocks", nf * 65536, 10,
+                             lambda: encode_blocks._launch(frames, lens, s_enc, s_elen, 2),
+                             lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h, 2), "8 blocks"),
+        "decode_chunks": (lambda: decode_chunks._launch(bcomp, boffs, big_lens, big_out, big_ok, big_w),
+                          f"{nf} chunks", nf * 65536, 10,
+                          lambda: decode_chunks._launch(s_comp, s_offs, lens, s_dout, s_ok, s_w),
+                          lambda: decode_chunks._decode_chunks_plain(s_comp_h, s_offs_h, lens_h, s_pout),
+                          "8 chunks"),
+        "decode_chunks_big": (lambda: decode_chunks._launch(sb_comp, sb_offs, sb_decl, sb_out, sb_ok, sb_w),
+                              f"{len(straddle)} unsplittable serving streams at W={BIG}",
+                              int(sb_decl.sum()), 10,
+                              lambda: decode_chunks._launch(bw_comp_d, bw_offs_d, bw_decl_d, bw_out, bw_ok, bw_w),
+                              lambda: decode_chunks._decode_chunks_plain(bw_comp, bw_offs, bw_decl, bw_pout),
+                              f"{len(big_cases)} big-window cases"),
+        "decode_stream": (lambda: decode_stream._launch(r_comp, len(payload), r_out, r_status),
+                          f"the {len(r_body)}-byte level-1 stream of the payload", len(payload), 2,
+                          stream_set_kernel, stream_set_plain, f"{len(st_cases)} stream cases"),
     }
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        ms = event_ms(main_shape[name], 10)
-        ms8 = event_ms(small_kernel[name], 10)
-        plain_ms = host_ms(small_plain[name], 1)
-        print(f"timing: {name} kernel {ms:.4f} ms for {nf} x 64 KiB chunks "
-              f"({nf * 65536 / ms / 1e6:.2f} GB/s); on the 8-chunk set kernel "
-              f"{ms8:.4f} ms, plain {plain_ms:.2f} ms ({plain_ms / len(blocks):.2f} ms "
-              f"per chunk) {tag}")
+    for name, (source, replaces, _) in KERNELS.items():
+        main_fn, shape, nbytes, reps, small_fn, plain_fn, small_set = timing[name]
+        ms = event_ms(main_fn, reps)
+        ms_small = event_ms(small_fn, 3)
+        plain_ms = host_ms(plain_fn, 1)
+        print(f"timing: {name} kernel {ms:.4f} ms for {shape} ({nbytes / ms / 1e6:.3f} GB/s "
+              f"of output); on {small_set} kernel {ms_small:.4f} ms, plain {plain_ms:.2f} ms {tag}")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-                     "ms_8_chunks": ms8, "chunks": nf, "plain_chunks": len(blocks)})
+                     "ms_small": ms_small, "shape": shape, "small_set": small_set})
+    torch.cuda.synchronize()
+    assert int(r_status[0]) == 1 and torch.equal(r_out.cpu(), torch.frombuffer(bytearray(payload), dtype=torch.uint8)), \
+        "streaming decode of the 48 MiB stream"
 
-    def e2e(fn, reps=3):
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return min(times), statistics.median(times)
-
-    for name, fn in (("encode_framed", lambda: api.encode_framed(payload, device=dev)),
-                     ("decode_framed", lambda: api.decode_framed(stream, device=dev))):
-        best, med = e2e(fn)
-        print(f"timing: {name} {len(payload)} bytes: best {best * 1e3:.2f} ms "
-              f"({len(payload) / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
-              f"({len(payload) / med / 1e9:.3f} GB/s) {tag}")
+    batch_bytes = sum(len(e) for e in expect if e is not None)
+    for name, fn, nbytes, reps in (
+        ("encode_framed L1", lambda: api.encode_framed(payload, device=dev), len(payload), 3),
+        ("decode_framed", lambda: api.decode_framed(stream, device=dev), len(payload), 3),
+        ("encode_framed L2", lambda: api.encode_framed(payload, level=2, device=dev), len(payload), 3),
+        ("encode L1", lambda: api.encode(payload, device=dev), len(payload), 3),
+        ("encode L2", lambda: api.encode(payload, level=2, device=dev), len(payload), 3),
+        ("decode", lambda: api.decode(raw1, device=dev), len(payload), 2),
+        ("decode_batch", lambda: api.decode_batch(serving, device=dev), batch_bytes, 3),
+    ):
+        best, med = e2e(fn, reps)
+        print(f"timing: {name} {nbytes} bytes: best {best * 1e3:.2f} ms "
+              f"({nbytes / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
+              f"({nbytes / med / 1e9:.3f} GB/s) {tag}")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,24 +1,35 @@
 """snappy_tpu_torch — the Snappy codec of snappy_tpu on PyTorch and CUDA.
 
 JAX counterpart: snappy_tpu/__init__.py.  This package imports torch and
-never jax.  Its first slice is the framed format's main path: masked
-CRC32C, the chunk decoder and the level-1 block encoder run as CUDA
-kernels written for the H100 (sm_90a), built from ``ops/csrc`` at first
-use; ``device="cpu"`` runs their plain PyTorch versions.
+never jax.  Masked CRC32C, the chunk decoder (chunk and big-window
+shapes), the streaming raw decoder and the block encoder (levels 1 and 2)
+run as CUDA kernels written for the H100 (sm_90a), built from
+``ops/csrc`` at first use; ``device="cpu"`` runs their plain PyTorch
+versions.
 
-Public API surface of this slice:
+Public API surface so far:
 
+    encode / decode                      raw format, bytes in/out
+    encode_batch / decode_batch          many raw streams, shared launches
+    compress_into / uncompress_into      raw format, caller buffers, Result
     encode_framed / decode_framed        framed format, bytes in/out
-    uncompressed_len_framed              stream sizing
+    uncompressed_len[_framed]            stream sizing
     max_compressed_len[_framed]          worst-case output sizing
     is_framed_stream                     magic sniff
     masked_crc32c                        masked CRC32C of one buffer
 """
 
 from .api import (  # noqa: F401
+    compress_into,
+    decode,
+    decode_batch,
     decode_framed,
+    encode,
+    encode_batch,
     encode_framed,
     is_framed_stream,
+    uncompress_into,
+    uncompressed_len,
     uncompressed_len_framed,
 )
 from .engine import masked_crc32c  # noqa: F401

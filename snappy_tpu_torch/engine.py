@@ -1,16 +1,18 @@
-"""Framed encode and decode around the kernels: batching and assembly.
+"""Raw and framed encode and decode around the kernels: batching and
+assembly.
 
-JAX counterpart: snappy_tpu/engine.py, its framed parts (``_split_blocks``,
-``framed_compress``, ``framed_uncompress``, ``framed_uncompress_chunks``,
-``_framed_uncompress_device``, ``_scan_failure_reason`` and the device
-``masked_crc32c``).
+JAX counterpart: snappy_tpu/engine.py, its device paths: ``raw_compress``,
+``raw_compress_batch``, ``raw_uncompress``, ``raw_uncompress_batch``,
+``_split_blocks``, ``framed_compress``, ``framed_uncompress``,
+``framed_uncompress_chunks``, ``_framed_uncompress_device``,
+``_scan_failure_reason`` and the device ``masked_crc32c``.
 
-Each call launches each kernel once over all its chunks: the JAX engine's
+Each call launches each kernel once over all its rows: the JAX engine's
 512-chunk slabs and power-of-two shape buckets were there to bound TPU
-compile shapes, which PyTorch does not have.  Frames are parsed and the
-stream is assembled on the host; CRC, decode and encode run on ``device``
-(``cuda`` by default, see config.py).  Nothing here raises on malformed
-input: callers get (value, reason) results, which the API layer converts.
+compile shapes, which PyTorch does not have.  Streams are parsed and
+assembled on the host; CRC, decode and encode run on ``device`` (``cuda``
+by default, see config.py).  Nothing here raises on malformed input:
+callers get (value, reason) results, which the API layer converts.
 """
 
 from __future__ import annotations
@@ -23,12 +25,10 @@ import torch
 from . import config
 from .formats import constants as C
 from .formats import framing, varint
-from .ops import crc32c, decode_chunks, encode_blocks
+from .ops import crc32c, decode_chunks, decode_stream, encode_blocks, host_codec
 
 _BLOCK = C.MAX_BLOCK_LEN  # 65536
-
-# The next queue item that adds level 2 (K3 at ways=2).
-_LEVEL2_TODO = "level >= 2 is not ported yet (ROADMAP queue 1 item 4: K3 ways=2)"
+_BIG = decode_chunks.MAX_OUT  # 131072: K2's big-window shape
 
 
 def _split_blocks(arr: np.ndarray, dev: torch.device):
@@ -43,14 +43,225 @@ def _split_blocks(arr: np.ndarray, dev: torch.device):
     return host.view(nf, _BLOCK).to(dev), torch.from_numpy(flens).to(dev)
 
 
+# ---------------------------------------------------------------------------
+# Raw format
+# ---------------------------------------------------------------------------
+
+
+def raw_compress(
+    data: bytes, level: int = 1, device: config.DeviceLike = None
+) -> Optional[bytes]:
+    """Raw-format compress: varint header + the block tag streams
+    (snappy.nim:27-64); None for input over MAX_UNCOMPRESSED_LEN.  Level
+    >= 2 encodes with two-way hash buckets (engine.py:222)."""
+    return raw_compress_batch([data], level, device)[0]
+
+
+def raw_compress_batch(
+    datas: List[bytes], level: int = 1, device: config.DeviceLike = None
+) -> List[Optional[bytes]]:
+    """Compress many payloads with one encoder launch over the 64 KiB
+    blocks of all of them.  Returns one stream (or None for oversized
+    input) per payload, byte-identical to ``raw_compress`` of that payload
+    alone (the block split is per payload)."""
+    dev = config.resolve_device(device)
+    results: List[Optional[bytes]] = [None] * len(datas)
+    plan = []  # (result index, first block row, block count)
+    rows = 0
+    for i, data in enumerate(datas):
+        n = len(data)
+        if n > C.MAX_UNCOMPRESSED_LEN:
+            continue
+        if n == 0:
+            results[i] = varint.encode_uint32(0)
+            continue
+        plan.append((i, rows, -(-n // _BLOCK)))
+        rows += plan[-1][2]
+    if not plan:
+        return results
+    # The kernel reads only the first lens[k] bytes of row k: no zero fill.
+    host = torch.empty((rows, _BLOCK), dtype=torch.uint8)
+    flat = host.numpy().reshape(-1)
+    lens = np.full(rows, _BLOCK, dtype=np.int32)
+    for i, r0, k in plan:
+        n = len(datas[i])
+        flat[r0 * _BLOCK : r0 * _BLOCK + n] = np.frombuffer(datas[i], dtype=np.uint8)
+        lens[r0 + k - 1] = n - (k - 1) * _BLOCK
+    enc, enc_len = encode_blocks.encode_blocks(
+        host.to(dev), torch.from_numpy(lens).to(dev), level
+    )
+    # Each row's bytes, concatenated in row order on the device: one copy
+    # of exactly the encoded bytes to the host.
+    keep = torch.arange(enc.shape[1], device=dev) < enc_len[:, None]
+    streams = enc.masked_select(keep).cpu().numpy()
+    ends = np.cumsum(enc_len.cpu().numpy().astype(np.int64))
+    for i, r0, k in plan:
+        lo = int(ends[r0 - 1]) if r0 else 0
+        results[i] = varint.encode_uint32(len(datas[i])) + streams[lo : ends[r0 + k - 1]].tobytes()
+    return results
+
+
+def _declared(data: bytes, max_size: int) -> Tuple[Optional[int], int, str]:
+    """(declared length, varint length, "ok") of a raw stream, or (None, 0,
+    reason).  The sizing varint is read as uint64 (codec.nim:129-138), the
+    decode's own as the stricter 5-byte uint32 (snappy.nim:92)."""
+    declared64, _ = varint.decode_uint64(data)
+    if declared64 is None or declared64 > C.MAX_UNCOMPRESSED_LEN:
+        return None, 0, "invalid"
+    if declared64 > max_size:
+        return None, 0, "too_large"
+    declared, read = varint.decode_uint32(data)
+    if declared is None:
+        return None, 0, "invalid"
+    return declared, read, "ok"
+
+
+def _decode_segments(
+    bodies: List[memoryview], in_offs: List[np.ndarray], seg_declared: List[int],
+    width: int, dev: torch.device,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One K2 launch over the segments of ``bodies`` (body ``k`` splits at
+    ``in_offs[k]``, nseg + 1 offsets) into rows of ``width`` bytes.
+    Returns (ok bool [rows], out uint8 [rows, width]) on the host."""
+    total = sum(len(b) for b in bodies)
+    comp = torch.empty(total, dtype=torch.uint8)
+    np.concatenate([np.frombuffer(b, dtype=np.uint8) for b in bodies], out=comp.numpy())
+    base = np.cumsum([0] + [len(b) for b in bodies])
+    offsets = np.concatenate([base[k] + in_offs[k][:-1] for k in range(len(bodies))] + [base[-1:]])
+    offsets = offsets.astype(np.int64)
+    declared = np.asarray(seg_declared, dtype=np.int32)
+    out = torch.empty((len(declared), width), dtype=torch.uint8, device=dev)
+    ok, _written = decode_chunks.decode_chunks(
+        comp.to(dev), torch.from_numpy(offsets).to(dev), torch.from_numpy(declared).to(dev),
+        out, host_values=(offsets, declared),
+    )
+    return ok.cpu().numpy(), out.cpu().numpy()
+
+
+def raw_uncompress(
+    data: bytes,
+    max_size: int = C.MAX_UNCOMPRESSED_LEN,
+    device: config.DeviceLike = None,
+) -> Tuple[Optional[bytes], str]:
+    """Raw-format uncompress (snappy.nim:84-128).  Returns (payload, "ok")
+    or (None, reason); reason in {"invalid", "too_large"}.
+
+    A stream of at most 128 KiB out takes K2 at the big-window shape, any
+    larger one K4.  The JAX engine also required the body to fit K2's
+    comp capacity (``len(body) <= 4 * RAW_C_WORDS``); the port's K2 takes
+    ragged input of any length, so that condition is gone, and the verdict
+    cannot change, since both decoders are exact.  K4 keeps 64-bit
+    cursors, so the JAX engine's int32 guard (declared and body below
+    2^31 - 2^21) and the XLA decoder behind it are gone too: every
+    declared length up to MAX_UNCOMPRESSED_LEN takes K4."""
+    dev = config.resolve_device(device)
+    declared, read, reason = _declared(data, max_size)
+    if declared is None:
+        return None, reason
+    body = memoryview(data)[read:]
+    if declared == 0:
+        return (b"", "ok") if len(body) == 0 else (None, "invalid")
+    if len(body) == 0:
+        return None, "invalid"
+    if declared <= _BIG:
+        ok, out = _decode_segments([body], [np.array([0, len(body)])], [declared], _BIG, dev)
+        return (out[0, :declared].tobytes(), "ok") if ok[0] else (None, "invalid")
+    comp = torch.empty(len(body), dtype=torch.uint8)
+    comp.numpy()[:] = np.frombuffer(body, dtype=np.uint8)
+    out = torch.empty(declared, dtype=torch.uint8, device=dev)
+    status = decode_stream.decode_stream(comp.to(dev), declared, out)
+    if not int(status[0]):
+        return None, "invalid"
+    return out.cpu().numpy().tobytes(), "ok"
+
+
+def raw_uncompress_batch(
+    datas: List[bytes],
+    max_size: int = C.MAX_UNCOMPRESSED_LEN,
+    device: config.DeviceLike = None,
+) -> List[Tuple[Optional[bytes], str]]:
+    """Decode many independent raw streams: one K2 launch at the chunk
+    shape over every one-block stream and every 64 KiB segment of the
+    larger streams that the native tag scan splits, and one K2 launch at
+    the big-window shape over the unsplittable streams of at most 128 KiB.
+    Anything else goes through ``raw_uncompress``, and so does a split
+    stream whose segment fails its in-chunk check (a legal copy reaching
+    across a block boundary, which the split does not model): the
+    whole-stream decoder is authoritative for its bytes and verdict
+    (engine.py:511-518).  As in ``raw_uncompress``, the JAX engine's comp
+    capacity conditions (``len(body) <= 4 * C_WORDS`` for a one-block
+    stream, ``len(segment) > C_CAP`` refusing a split) are gone: K2 takes
+    ragged input.  Returns one (payload or None, reason) per stream."""
+    dev = config.resolve_device(device)
+    results: List[Optional[Tuple[Optional[bytes], str]]] = [None] * len(datas)
+    seg_jobs = []  # (result index, body, in_offs, declared): the chunk shape
+    big_jobs = []  # (result index, body, declared): the big-window shape
+    for i, data in enumerate(datas):
+        declared, read, reason = _declared(data, max_size)
+        if declared is None:
+            results[i] = (None, reason)
+            continue
+        body = memoryview(data)[read:]
+        if declared == 0:
+            results[i] = (b"", "ok") if len(body) == 0 else (None, "invalid")
+            continue
+        if len(body) == 0:
+            results[i] = (None, "invalid")
+            continue
+        if declared <= _BLOCK:
+            seg_jobs.append((i, body, np.array([0, len(body)]), declared))
+            continue
+        offs = host_codec.scan_raw_blocks(body, declared)
+        # One segment per output block, or the split is not used: the scan
+        # checks for straddling ops only at op starts, so an op over the
+        # last boundary ends the stream with one segment too few.  (The
+        # JAX engine lets such a split through when its segments fit
+        # C_CAP and then reports a valid stream invalid.)
+        if offs is not None and len(offs) - 1 == -(-declared // _BLOCK):
+            seg_jobs.append((i, body, offs, declared))
+        elif declared <= _BIG:
+            big_jobs.append((i, body, declared))
+        else:
+            results[i] = raw_uncompress(data, max_size, dev)
+
+    if seg_jobs:
+        seg_declared = []
+        for _, _, offs, declared in seg_jobs:
+            seg_declared += [min(_BLOCK, declared - k * _BLOCK) for k in range(len(offs) - 1)]
+        ok, out = _decode_segments(
+            [j[1] for j in seg_jobs], [j[2] for j in seg_jobs], seg_declared, _BLOCK, dev
+        )
+        r0 = 0
+        for i, _, offs, declared in seg_jobs:
+            r1 = r0 + len(offs) - 1
+            if ok[r0:r1].all():
+                results[i] = (out[r0:r1].reshape(-1)[:declared].tobytes(), "ok")
+            elif r1 - r0 == 1:
+                results[i] = (None, "invalid")
+            else:
+                results[i] = raw_uncompress(datas[i], max_size, dev)
+            r0 = r1
+    if big_jobs:
+        ok, out = _decode_segments(
+            [j[1] for j in big_jobs], [np.array([0, len(j[1])]) for j in big_jobs],
+            [j[2] for j in big_jobs], _BIG, dev,
+        )
+        for k, (i, _, declared) in enumerate(big_jobs):
+            results[i] = (out[k, :declared].tobytes(), "ok") if ok[k] else (None, "invalid")
+    return results  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Framed format
+# ---------------------------------------------------------------------------
+
+
 def framed_compress(
     data: bytes, level: int = 1, device: config.DeviceLike = None
 ) -> bytes:
     """Framed-format compress (snappy.nim:130-155, encoder.nim:385-426):
     per 64 KiB frame, masked CRC + compressed payload if it saves >= 1/8 of
     the frame, else the verbatim payload."""
-    if level != 1:
-        raise ValueError(_LEVEL2_TODO)
     dev = config.resolve_device(device)
     if not data:
         return C.FRAMING_HEADER
@@ -58,7 +269,7 @@ def framed_compress(
     arr = np.frombuffer(data, dtype=np.uint8)
     frames, flens = _split_blocks(arr, dev)
     crcs = crc32c.masked_crc32c_chunks(frames, flens)
-    enc, totals = encode_blocks.encode_blocks(frames, flens)
+    enc, totals = encode_blocks.encode_blocks(frames, flens, level)
     crcs = crcs.cpu().numpy()
     enc = enc.cpu().numpy()
     totals = totals.cpu().numpy()
@@ -157,12 +368,12 @@ def _framed_uncompress_device(
         offsets = np.zeros(n + 1, dtype=np.int64)
         offsets[1:] = np.cumsum([hi - lo for _, _, lo, hi, _, _ in comp_jobs])
         comp = np.concatenate([arr[lo:hi] for _, _, lo, hi, _, _ in comp_jobs])
-        declared = torch.tensor([j[4] for j in comp_jobs], dtype=torch.int32)
-        declared = declared.to(dev)
+        declared_h = np.array([j[4] for j in comp_jobs], dtype=np.int32)
+        declared = torch.from_numpy(declared_h).to(dev)
         out = torch.empty((n, _BLOCK), dtype=torch.uint8, device=dev)
         ok, _written = decode_chunks.decode_chunks(
             torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
-            declared, out,
+            declared, out, host_values=(offsets, declared_h),
         )
         ok = ok.cpu().numpy()
         if check_integrity:

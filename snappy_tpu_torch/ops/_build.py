@@ -3,13 +3,16 @@
 JAX counterpart: none; ``snappy_tpu/ops/host_codec._build`` is the model
 (a content-hashed shared object loaded with ctypes).
 
-``cuda_lib()`` compiles ``csrc/*.cu`` with nvcc for sm_90a into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds) and loads it with ctypes.  ``twin_lib()`` compiles the same
+``cuda_lib()`` compiles ``csrc/*.cu`` with nvcc for sm_90a, one nvcc
+process per source, all at once, links them into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds) and
+loads it with ctypes.  ``twin_lib()`` compiles the same
 sources with g++ into the CPU twin that the tests load; the port's path
 never uses it.  Both go to ``build/snappy_tpu_torch/`` at the root of the
-checkout, named by a hash of the sources and the command, under a file
+checkout, named by a hash of the sources and the commands, under a file
 lock so that concurrent test workers do not race the build.
+``host_codec`` builds the native C runtime (``native/*.c``) with the same
+``_build``.
 """
 
 from __future__ import annotations
@@ -23,12 +26,12 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("crc32c.cu", "decode_chunks.cu", "encode_blocks.cu")
+SOURCES = ("crc32c.cu", "decode_chunks.cu", "decode_stream.cu", "encode_blocks.cu")
 HEADERS = ("snappy_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snappy_tpu_torch"
 
@@ -41,7 +44,8 @@ _I64 = ctypes.c_int64
 _ENTRY_POINTS: Dict[str, List] = {
     "crc32c_chunks": [_P, _I64, _P, _I, _P, _P, _P, _P],
     "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
-    "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _P],
+    "decode_stream": [_P, _I64, _I64, _P, _P, _P],
+    "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _I, _P],
 }
 
 
@@ -53,33 +57,55 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def _build(name: str, cmd: List[str]) -> Path:
-    """Compile the sources with ``cmd`` (the output path is appended) into
-    BUILD_DIR, unless a library of the same sources and command is there.
-    The compiler's output goes to a ``.log`` beside the library."""
-    digest = hashlib.sha256(repr(cmd).encode())
-    for f in SOURCES + HEADERS:
-        digest.update((CSRC / f).read_bytes())
+def _build(
+    name: str,
+    compile_cmd: List[str],
+    link_cmd: List[str],
+    sources: Sequence[Path],
+    headers: Sequence[Path] = (),
+) -> Path:
+    """Build ``sources`` into a shared library in BUILD_DIR, unless one of
+    the same sources, headers and commands is there: each source compiles
+    in its own process (``compile_cmd -c src -o obj``), all started at
+    once, then ``link_cmd objs -o lib`` joins them.  The compilers' output
+    goes to a ``.log`` beside the library."""
+    digest = hashlib.sha256(repr((compile_cmd, link_cmd)).encode())
+    for f in list(sources) + list(headers):
+        digest.update(f.read_bytes())
     so = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
-                tmp = Path(td) / "lib.so"
-                proc = subprocess.run(
-                    cmd + ["-o", str(tmp)] + [str(CSRC / f) for f in SOURCES],
-                    capture_output=True,
-                    text=True,
-                )
-                so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"building {name} failed ({proc.returncode}):\n"
-                        + proc.stderr[-4000:]
+                objs = [str(Path(td) / f"{k}_{src.stem}.o") for k, src in enumerate(sources)]
+                procs = [
+                    subprocess.Popen(
+                        compile_cmd + ["-c", str(src), "-o", obj],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                     )
+                    for src, obj in zip(sources, objs)
+                ]
+                log = "".join(p.communicate()[0] for p in procs)
+                rc = max(p.returncode for p in procs)
+                if rc == 0:
+                    tmp = Path(td) / "lib.so"
+                    link = subprocess.run(
+                        link_cmd + objs + ["-o", str(tmp)], capture_output=True, text=True
+                    )
+                    log += link.stdout + link.stderr
+                    rc = link.returncode
+                so.with_suffix(".log").write_text(log)
+                if rc != 0:
+                    raise RuntimeError(f"building {name} failed ({rc}):\n" + log[-4000:])
                 os.replace(tmp, so)
     return so
+
+
+def _kernel_build(name: str, compile_cmd: List[str], link_cmd: List[str]) -> Path:
+    return _build(
+        name, compile_cmd, link_cmd, [CSRC / f for f in SOURCES], [CSRC / f for f in HEADERS]
+    )
 
 
 def _load(so: Path, prefix: str, with_stream: bool) -> ctypes.CDLL:
@@ -94,13 +120,10 @@ def _load(so: Path, prefix: str, with_stream: bool) -> ctypes.CDLL:
 @functools.cache
 def cuda_lib() -> ctypes.CDLL:
     """The kernels for the card (nvcc, sm_90a)."""
-    cmd = [
-        _nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v",
-    ]
-    return _load(_build("kernels_sm90a", cmd), "stpu_", with_stream=True)
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    cmd = [_nvcc(), *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    so = _kernel_build("kernels_sm90a", cmd, [_nvcc(), *arch, "-shared"])
+    return _load(so, "stpu_", with_stream=True)
 
 
 def cuda_build_log() -> str:
@@ -123,5 +146,6 @@ def launch(name: str, device: torch.device, *args) -> None:
 @functools.cache
 def twin_lib() -> ctypes.CDLL:
     """The CPU twin of the same sources (g++), for the tests only."""
-    cmd = ["g++", "-std=c++17", "-O2", "-shared", "-fPIC", "-x", "c++"]
-    return _load(_build("twin_cpu", cmd), "stpu_twin_", with_stream=False)
+    cmd = ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++"]
+    so = _kernel_build("twin_cpu", cmd, ["g++", "-shared"])
+    return _load(so, "stpu_twin_", with_stream=False)

@@ -2,16 +2,19 @@
 // snappy_tpu_torch.ops.decode_chunks.decode_chunks.
 //
 // Replaces the TPU kernel snappy_tpu/ops/decode_scalar.py (_make_kernel /
-// _kernel, launched by _call and decode_chunks_words), with the emit
-// helpers of scalar_emit.py and emit_long.py folded into the byte loop
-// below.  The verdicts follow the host C decoder stpu_decode_tags
+// _kernel, launched by _call) at both of its shapes: the chunk shape
+// (decode_chunks_words, <= 64 KiB out) and the big-window shape of the raw
+// format (decode_raw_words and decode_raw_batch_words, <= 128 KiB out),
+// with the emit helpers of scalar_emit.py and emit_long.py folded into the
+// byte loop below.  The verdicts follow the host C decoder stpu_decode_tags
 // (snappy_codec.c:297-480) and the kernel's condition
 // ok = no error && pos == comp_len && written == declared
 // (decode_scalar.py:327); `written` is the output produced before the first
 // bad tag, as the TPU kernel reports it.
 //
 // Design: one CTA per chunk.  Thread 0 walks the tag stream; the chunk's
-// output (up to 64 KiB) is built in dynamic shared memory, so copies read
+// output row (up to 128 KiB: out_cols bytes of dynamic shared memory, so
+// 3 CTAs per SM at 64 KiB and one at 128 KiB) is built there, so copies read
 // back what was just written at shared-memory latency.  The compressed
 // bytes are read from global memory, where they arrive ragged (one buffer
 // plus int64 offsets), so a chunk body of any length is accepted — there
@@ -122,8 +125,10 @@ __global__ void __launch_bounds__(kDecThreads)
 
 // comp: uint8 ragged tag streams, chunk r = comp[offsets[r], offsets[r+1]);
 // declared: int32 [n], each <= out_cols; out: uint8 [n, out_cols], 16-byte
-// aligned rows, out_cols a multiple of 16 and <= 65536; ok: uint8 [n];
-// written: int32 [n].  Launches on `stream`; returns cudaGetLastError().
+// aligned rows, out_cols a multiple of 16 and <= 131072 (the launch refuses
+// more than the 232,448 bytes of shared memory a block may have); ok: uint8
+// [n]; written: int32 [n].  Launches on `stream`; returns
+// cudaGetLastError().
 STPU_EXPORT int stpu_decode_chunks(const uint8_t* comp, const int64_t* offsets,
                                    const int32_t* declared, int n, uint8_t* out,
                                    int64_t out_cols, uint8_t* ok,

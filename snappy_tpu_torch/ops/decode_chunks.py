@@ -1,9 +1,12 @@
-"""Snappy chunk decoder (kernel K2).
+"""Snappy chunk decoder (kernel K2), at the chunk and big-window shapes.
 
 JAX counterpart: snappy_tpu/ops/decode_scalar.py (the TPU kernel
-``_make_kernel``/``_kernel``, launched by ``decode_chunks_words``), with the
-in-kernel helpers of scalar_emit.py and emit_long.py folded in.  The CUDA
-kernel is ``csrc/decode_chunks.cu``.
+``_make_kernel``/``_kernel``, launched by ``decode_chunks_words`` at the
+chunk shape, <= 64 KiB out, and by ``decode_raw_words`` /
+``decode_raw_batch_words`` at the raw format's big-window shape, <= 128 KiB
+out), with the in-kernel helpers of scalar_emit.py and emit_long.py folded
+in.  The CUDA kernel is ``csrc/decode_chunks.cu``; the width ``W`` of
+``out`` is its shape.
 
 Inputs arrive ragged: one uint8 buffer of tag streams and int64 offsets,
 chunk ``i`` being ``comp_u8[offsets[i]:offsets[i + 1]]``.  There is no
@@ -18,19 +21,22 @@ holds the ``written`` bytes, then zeros.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-LAUNCHES = 0  # kernel launches made by decode_chunks
+LAUNCHES = 0  # kernel launches made by decode_chunks at W <= 65536
+LAUNCHES_BIG = 0  # ... and at the big-window shape, W > 65536
 
-MAX_OUT = 65536  # one chunk's output at most (MAX_UNCOMPRESSED_FRAME_DATA_LEN)
+CHUNK = 65536  # the chunk shape: MAX_UNCOMPRESSED_FRAME_DATA_LEN
+MAX_OUT = 131072  # the big-window shape (decode_scalar.RAW_OUT_WORDS * 4)
 
 
 def _check(comp_u8, comp_offsets, declared, out) -> None:
+    """Types, shapes and devices: no values, so no copy from the card."""
     if comp_u8.dtype != torch.uint8 or comp_u8.dim() != 1:
         raise TypeError("comp_u8 must be a 1-D uint8 tensor")
     if comp_offsets.dtype != torch.int64 or comp_offsets.dim() != 1:
@@ -44,16 +50,20 @@ def _check(comp_u8, comp_offsets, declared, out) -> None:
         raise TypeError("out must be a uint8 tensor [N, W]")
     cols = out.shape[1]
     if cols > MAX_OUT or cols % 16 or not out.is_contiguous() or out.data_ptr() % 16:
-        raise ValueError("out must be contiguous, 16-byte aligned, W <= 65536, W % 16 == 0")
+        raise ValueError("out must be contiguous, 16-byte aligned, W <= 131072, W % 16 == 0")
     dev = out.device
     for t in (comp_u8, comp_offsets, declared):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("inputs must be contiguous, on out's device")
-    if n:
-        offs = comp_offsets.cpu()
-        if int(offs[0]) < 0 or int(offs[-1]) > comp_u8.shape[0]:
+
+
+def check_values(offsets: np.ndarray, declared: np.ndarray, comp_len: int, cols: int) -> None:
+    """The values the kernel trusts, on host arrays: offsets inside the
+    buffer and not decreasing, each declared length in [0, W]."""
+    if len(declared):
+        if int(offsets[0]) < 0 or int(offsets[-1]) > comp_len:
             raise ValueError("comp_offsets out of the buffer")
-        if bool((offs[1:] < offs[:-1]).any()):
+        if bool((offsets[1:] < offsets[:-1]).any()):
             raise ValueError("comp_offsets must not decrease")
         if int(declared.min()) < 0 or int(declared.max()) > cols:
             raise ValueError("declared must lie in [0, W]")
@@ -64,13 +74,20 @@ def decode_chunks(
     comp_offsets: torch.Tensor,
     declared: torch.Tensor,
     out: torch.Tensor,
+    host_values: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode N tag streams into the rows of ``out``.
 
     comp_u8: uint8 [C]; comp_offsets: int64 [N + 1]; declared: int32 [N];
-    out: uint8 [N, W] (W <= 65536, a multiple of 16), written in place.
-    Returns (ok bool [N], written int32 [N]) on out's device."""
+    out: uint8 [N, W] (W <= 131072, a multiple of 16), written in place.
+    ``host_values``: the host arrays (offsets, declared) that the two
+    tensors were uploaded from, for a caller that has them; their values
+    are then checked there instead of copying the tensors back from the
+    card.  Returns (ok bool [N], written int32 [N]) on out's device."""
     _check(comp_u8, comp_offsets, declared, out)
+    if host_values is None:
+        host_values = (comp_offsets.cpu().numpy(), declared.cpu().numpy())
+    check_values(*host_values, comp_u8.shape[0], out.shape[1])
     dev = out.device
     if dev.type == "cpu":
         return _decode_chunks_plain(comp_u8, comp_offsets, declared, out)
@@ -92,13 +109,19 @@ def _launch(comp_u8, comp_offsets, declared, out, ok, written) -> None:
         declared.shape[0], out.data_ptr(), out.shape[1], ok.data_ptr(),
         written.data_ptr(),
     )
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, LAUNCHES_BIG
+    if out.shape[1] <= CHUNK:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_BIG += 1
 
 
-def decode_tags(body: bytes, m: int) -> Tuple[bool, int, bytes]:
-    """Decode one tag stream with declared length ``m``: (ok, written,
-    output produced).  The plain version's per-chunk body."""
+def decode_tags(body: bytes, m: int) -> Tuple[bool, int, int, bytes]:
+    """Decode one tag stream with declared length ``m`` by the sequential
+    walk (decoder.nim:20-155): (ok, written, consumed, output produced),
+    where ``consumed`` is the offset of the first bad tag, or
+    ``len(body)``.  The plain version's per-chunk body, and the streaming
+    decoder's."""
     n = len(body)
     out = bytearray()
     i = 0
@@ -142,7 +165,7 @@ def decode_tags(body: bytes, m: int) -> Tuple[bool, int, bytes]:
             pattern = out[o - offset :]
             out += (pattern * (length // offset + 1))[:length]
         i += hdr
-    return (not bad) and len(out) == m, len(out), bytes(out)
+    return (not bad) and len(out) == m, len(out), i, bytes(out)
 
 
 def _decode_chunks_plain(comp_u8, comp_offsets, declared, out):
@@ -154,7 +177,7 @@ def _decode_chunks_plain(comp_u8, comp_offsets, declared, out):
     ok = np.zeros(len(decl), dtype=bool)
     written = np.zeros(len(decl), dtype=np.int32)
     for k, m in enumerate(decl):
-        ok[k], written[k], produced = decode_tags(comp[offs[k] : offs[k + 1]], m)
+        ok[k], written[k], _, produced = decode_tags(comp[offs[k] : offs[k + 1]], m)
         rows[k, : len(produced)] = np.frombuffer(produced, dtype=np.uint8)
     out.copy_(torch.from_numpy(rows))
     return torch.from_numpy(ok).to(out.device), torch.from_numpy(written).to(out.device)

@@ -1,10 +1,12 @@
-"""Snappy block encoder, level 1 (kernel K3).
+"""Snappy block encoder, levels 1 and 2 (kernel K3).
 
 JAX counterpart: snappy_tpu/ops/encode_scalar.py (the TPU kernel
-``_kernel`` at ``ways=1``, launched by ``encode_blocks_words``).  The CUDA
-kernel is ``csrc/encode_blocks.cu``.  The bytes equal the host C encoder at
-level 1 (snappy_codec.c:127-222), which equals the TPU kernel's.  Level 2
-(``ways=2``) is not ported yet.
+``_kernel`` at ``ways=1`` and ``ways=2``, launched by
+``encode_blocks_words``).  The CUDA kernel is ``csrc/encode_blocks.cu``.
+The bytes equal the host C encoder at the same level
+(snappy_codec.c:127-222), which equals the TPU kernel's.  Level >= 2
+selects ``ways=2``, two-entry FIFO hash buckets, as the JAX engine does
+(engine.py:222).
 
 Each row's encoded bytes are ``enc[i, :enc_len[i]]``; what lies past them
 is unspecified.
@@ -20,7 +22,8 @@ import torch
 from ..formats import constants as C
 from . import _build
 
-LAUNCHES = 0  # kernel launches made by encode_blocks
+LAUNCHES = 0  # kernel launches made by encode_blocks at level 1 (ways=1)
+LAUNCHES_L2 = 0  # ... and at level >= 2 (ways=2)
 
 BLOCK = C.MAX_BLOCK_LEN
 # Output capacity per block: the format's worst case plus 16 bytes of slack
@@ -47,36 +50,40 @@ def _check(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
 
 
 def encode_blocks(
-    blocks_u8: torch.Tensor, lens: torch.Tensor
+    blocks_u8: torch.Tensor, lens: torch.Tensor, level: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode ``blocks_u8[i, :lens[i]]`` to a raw tag stream (no varint
-    header) for each row.
+    header) for each row, at ``level`` (1, or >= 2 for two-way buckets).
 
     blocks_u8: uint8 [N, W]; lens: int32 [N], each <= 65536.  Returns
     (enc uint8 [N, ENC_CAP], enc_len int32 [N]) on the same device."""
     _check(blocks_u8, lens)
+    ways = 2 if level >= 2 else 1
     dev = blocks_u8.device
     if dev.type == "cpu":
-        return _encode_blocks_plain(blocks_u8, lens)
+        return _encode_blocks_plain(blocks_u8, lens, ways)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n = len(lens)
     enc = torch.empty((n, ENC_CAP), dtype=torch.uint8, device=dev)
     enc_len = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _launch(blocks_u8, lens, enc, enc_len)
+        _launch(blocks_u8, lens, enc, enc_len, ways)
     return enc, enc_len
 
 
-def _launch(blocks_u8, lens, enc, enc_len) -> None:
+def _launch(blocks_u8, lens, enc, enc_len, ways: int = 1) -> None:
     """Launch the kernel on checked CUDA tensors (N >= 1), no checks."""
     _build.launch(
         "encode_blocks", blocks_u8.device,
         blocks_u8.data_ptr(), blocks_u8.stride(0), lens.data_ptr(), len(lens),
-        enc.data_ptr(), enc.shape[1], enc_len.data_ptr(),
+        enc.data_ptr(), enc.shape[1], enc_len.data_ptr(), ways,
     )
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, LAUNCHES_L2
+    if ways == 1:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_L2 += 1
 
 
 def _literal(out: bytearray, lit: bytes) -> None:
@@ -106,9 +113,11 @@ def _copy(out: bytearray, offset: int, length: int) -> None:
         out.extend((((offset >> 8) << 5) | (((length - 4) & 7) << 2) | 1, offset & 0xFF))
 
 
-def encode_block(data: bytes) -> bytes:
-    """Greedy level-1 encode of one block (<= 64 KiB): the plain version's
-    per-block body, a line-for-line port of encode_block_impl."""
+def encode_block(data: bytes, ways: int = 1) -> bytes:
+    """Greedy encode of one block (<= 64 KiB) with ``ways``-entry hash
+    buckets: the plain version's per-block body, a line-for-line port of
+    encode_block_impl.  At ways=2 bucket ``h`` is the FIFO
+    ``table[2h]`` (newest), ``table[2h + 1]``."""
     n = len(data)
     out = bytearray()
     if n < C.MIN_NON_LITERAL_BLOCK_SIZE:
@@ -119,7 +128,7 @@ def encode_block(data: bytes) -> bytes:
     while table_size < (1 << _TABLE_BITS) and table_size < n:
         table_size <<= 1
     shift = 32 - (table_size.bit_length() - 1)
-    table = [0] * table_size
+    table = [0] * (ways * table_size)
 
     def load(p):
         return int.from_bytes(data[p : p + 4], "little")
@@ -144,10 +153,20 @@ def encode_block(data: bytes) -> bytes:
                 return bytes(out)
             cur = load(ip)
             h = hsh(cur)
-            candidate = table[h]
-            table[h] = ip
-            if cur == load(candidate):
-                break
+            if ways == 1:
+                candidate = table[h]
+                table[h] = ip
+                if cur == load(candidate):
+                    break
+            else:
+                c1, c2 = table[2 * h], table[2 * h + 1]
+                table[2 * h + 1], table[2 * h] = c1, ip
+                if cur == load(c1):
+                    candidate = c1
+                    break
+                if cur == load(c2):
+                    candidate = c2
+                    break
         if next_emit < ip:
             _literal(out, data[next_emit:ip])
         while True:  # match extension loop
@@ -166,21 +185,33 @@ def encode_block(data: bytes) -> bytes:
             hp = hsh(load(ip - 1))
             cur = load(ip)
             h = hsh(cur)
-            table[hp] = ip - 1
-            candidate = table[h]
-            table[h] = ip
-            if cur != load(candidate):
-                ip += 1
-                break
+            if ways == 1:
+                table[hp] = ip - 1
+                candidate = table[h]
+                table[h] = ip
+                if cur != load(candidate):
+                    ip += 1
+                    break
+            else:
+                table[2 * hp + 1], table[2 * hp] = table[2 * hp], ip - 1
+                c1, c2 = table[2 * h], table[2 * h + 1]
+                table[2 * h + 1], table[2 * h] = c1, ip
+                if cur == load(c1):
+                    candidate = c1
+                elif cur == load(c2):
+                    candidate = c2
+                else:
+                    ip += 1
+                    break
 
 
-def _encode_blocks_plain(blocks_u8: torch.Tensor, lens: torch.Tensor):
+def _encode_blocks_plain(blocks_u8: torch.Tensor, lens: torch.Tensor, ways: int = 1):
     """The plain version: ``encode_block`` on each row in turn."""
     rows = blocks_u8.cpu().numpy()
     enc = np.zeros((len(rows), ENC_CAP), dtype=np.uint8)
     enc_len = np.zeros(len(rows), dtype=np.int32)
     for k, n in enumerate(lens.tolist()):
-        e = encode_block(rows[k, :n].tobytes())
+        e = encode_block(rows[k, :n].tobytes(), ways)
         enc[k, : len(e)] = np.frombuffer(e, dtype=np.uint8)
         enc_len[k] = len(e)
     dev = blocks_u8.device

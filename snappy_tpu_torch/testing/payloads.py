@@ -1,4 +1,4 @@
-"""Seeded payloads for the framed main path, and pinned vectors.
+"""Seeded payloads for the main paths, and pinned vectors.
 
 JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
 
@@ -13,6 +13,15 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
   backend="host", level=1)``; the host C bytes equal the TPU kernel's).  A
   test recomputes it from the JAX package, so it cannot go stale; on the
   card it ties the port to the JAX package without importing jax.
+  ``RAW_L1_SHA256``, ``RAW_L2_SHA256`` and ``FRAMED_L2_SHA256`` pin the
+  same payload's raw stream at levels 1 and 2
+  (``snappy_tpu.engine.raw_compress(payload, backend="host", level=L)``)
+  and its framed stream at level 2, the same way.
+* ``serving_batch`` — the raw batch decoder's input: one-block streams,
+  unsplittable streams of 70-128 KiB, one large stream and malformed ones.
+* ``big_window_cases`` and ``stream_cases`` — tag streams for the chunk
+  decoder's big-window shape and for the streaming decoder, the ROADMAP's
+  watch list included (segments across window edges, far copies).
 * ``smoke_blocks`` — 8 blocks, one of each kind and size the kernels must
   handle, for comparing each kernel with its plain version.
 * ``MALFORMED_RAW`` — a copy of ``tests/test_oracle.MALFORMED_RAW`` (a test
@@ -22,11 +31,12 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
 from ..formats import varint
+from ..ops.encode_blocks import encode_block
 
 FRAME = 65536
 MAIN_PATH_FRAMES = 768
@@ -36,6 +46,13 @@ MAIN_PATH_BYTES = MAIN_PATH_FRAMES * FRAME + 23_456  # + one ragged tail frame
 MAIN_PATH_SEED = 1
 
 GOLDEN_SHA256 = "3290f41a2f89899d8bf89109c543ab047772d7d9ed745d80e56f7a3bbf7d4d09"
+RAW_L1_SHA256 = "6c6af1e5ce4b8a5b191cb9189a1e80305316c68dcd461ee554fb76e7baeb4029"
+RAW_L2_SHA256 = "f12efea7b7276fedde406cafda243e7caf6e7c7ce361cb5544c3c4be669b7011"
+FRAMED_L2_SHA256 = "49b5f8fe31e2b3268316b15fdd629d68da91d6a9a0e0aaaa24d0a8cb65c4d5b9"
+
+SERVING_SEED = 3
+SERVING_SMALL = 256  # one-block streams of 40-60 KB
+SERVING_STRADDLE = 8  # unsplittable streams of 70-128 KiB
 
 # Hand-written malformed raw-format vectors, one per validation rule of the
 # sequential decoder.  Copied verbatim from tests/test_oracle.py.
@@ -186,4 +203,181 @@ def malformed_chunks() -> List[Tuple[bytes, int]]:
             out.append((vec, 16))
         else:
             out.append((vec[read:], declared))
+    return out
+
+
+def literal(data: bytes) -> bytes:
+    """A literal tag of any length (1 to 2^32 bytes) and its bytes."""
+    n = len(data) - 1
+    if n < 60:
+        return bytes([n << 2]) + data
+    extra = (n.bit_length() + 7) // 8
+    return bytes([(59 + extra) << 2]) + n.to_bytes(extra, "little") + data
+
+
+def copy2(offset: int, length: int) -> bytes:
+    """A copy tag with a 2-byte offset (length 1-64)."""
+    return bytes([2 | ((length - 1) << 2)]) + offset.to_bytes(2, "little")
+
+
+def body_of(stream: bytes) -> bytes:
+    """The tag stream of a raw stream (its varint header dropped)."""
+    _, read = varint.decode_uint32(stream)
+    return stream[read:]
+
+
+def serving_batch(
+    encode_batch: Callable[[List[bytes]], List[bytes]],
+    n_small: int = SERVING_SMALL,
+    big: int = MAIN_PATH_BYTES,
+    seed: int = SERVING_SEED,
+) -> Tuple[List[bytes], List[Optional[bytes]]]:
+    """A seeded batch of raw streams for the batch decoder, and the payload
+    each must decode to (None for a malformed stream):
+
+    * ``n_small`` one-block streams of 40-60 KB of one kind each;
+    * ``SERVING_STRADDLE`` unsplittable streams of 70-128 KiB: a block's
+      encoding, then one op whose output straddles the 64 KiB boundary (a
+      literal of up to 10 KB, or a copy of up to 64 bytes, alternately),
+      then the rest's encoding.  The block scan refuses them;
+    * ``mixed_payload(big)``'s stream (the scan splits it into its blocks);
+    * 4 malformed streams: a truncated one-block stream; a 3-block stream
+      whose second block holds a copy at offset 0 (the scan splits it, its
+      segment fails and the whole-stream decoder rejects it); a valid
+      one-block body under a declared length one too large; a varint that
+      overflows.
+
+    ``encode_batch`` maps payloads to raw streams (any encoder of the
+    format: the streams' bodies are spliced by block)."""
+    rng = Rand(seed)
+    small = []
+    for _ in range(n_small):
+        kind = _DRAW[int(rng.ints(0, len(_DRAW), 1)[0])]
+        small.append(KINDS[kind](rng, int(rng.ints(40_000, 60_001, 1)[0])).tobytes())
+    straddle, pieces = [], []
+    for k in range(SERVING_STRADDLE):
+        n = int(rng.ints(70 << 10, (128 << 10) + 1, 1)[0])
+        p = mixed_payload(n, seed + 100 + k)
+        if k % 2 == 0:  # one literal over the boundary
+            a = FRAME - int(rng.ints(1, 5000, 1)[0])
+            b = FRAME + int(rng.ints(1, 5000, 1)[0])
+            op = literal(p[a:b])
+        else:  # one copy over the boundary: make its source bytes repeat
+            length = int(rng.ints(5, 65, 1)[0])
+            a = FRAME - int(rng.ints(1, length, 1)[0])
+            b = a + length
+            off = int(rng.ints(length, 2000, 1)[0])
+            arr = bytearray(p)
+            arr[a:b] = arr[a - off : b - off]
+            p = bytes(arr)
+            op = copy2(off, length)
+        straddle.append((p, op))
+        pieces += [p[:a], p[b:]]
+    blocks3 = mixed_payload(3 * FRAME - 777, seed + 200)
+    big_payload = mixed_payload(big, seed=MAIN_PATH_SEED)
+    enc = encode_batch(small + pieces + [blocks3[:FRAME], blocks3[2 * FRAME :], big_payload])
+
+    streams = list(enc[:n_small])
+    expect: List[Optional[bytes]] = list(small)
+    for k, (p, op) in enumerate(straddle):
+        body = body_of(enc[n_small + 2 * k]) + op + body_of(enc[n_small + 2 * k + 1])
+        streams.append(varint.encode_uint32(len(p)) + body)
+        expect.append(p)
+    streams.append(enc[-1])
+    expect.append(big_payload)
+
+    head, mid, tail = enc[-3], blocks3[FRAME : 2 * FRAME], enc[-2]
+    bad_mid = literal(mid[:100]) + copy2(0, 4) + literal(mid[104:])
+    streams += [
+        enc[0][:-3],
+        varint.encode_uint32(len(blocks3)) + body_of(head) + bad_mid + body_of(tail),
+        varint.encode_uint32(len(small[1]) + 1) + body_of(enc[1]),
+        b"\xff" * 6,
+    ]
+    expect += [None] * 4
+    return streams, expect
+
+
+def copy4(offset: int, length: int) -> bytes:
+    """A copy tag with a 4-byte offset (length 1-64)."""
+    return bytes([3 | ((length - 1) << 2)]) + offset.to_bytes(4, "little")
+
+
+def raw_body(data: bytes) -> bytes:
+    """The level-1 raw tag stream of ``data`` (no varint header), from the
+    port's plain block encoder: the JAX package's bytes."""
+    return b"".join(encode_block(data[k : k + FRAME]) for k in range(0, len(data), FRAME))
+
+
+def _mutants(body: bytes, rng: Rand, count: int) -> List[bytes]:
+    out = []
+    for _ in range(count):
+        b = bytearray(body)
+        for _ in range(int(rng.ints(1, 3, 1)[0])):
+            b[int(rng.ints(0, len(b), 1)[0])] ^= 1 << int(rng.ints(0, 8, 1)[0])
+        out.append(bytes(b))
+    return out
+
+
+def big_window_cases(seed: int = 19) -> List[Tuple[bytes, int]]:
+    """(tag stream, declared) pairs for the chunk decoder at 128 KiB: a
+    100 KB one-literal stream, 128 KiB of RLE, mixed data over the 64 KiB
+    boundary, a 64 KiB stream declaring 131 KiB, then a half, a one byte
+    short and a mutated copy of each of the first three."""
+    rng = Rand(seed)
+    mixed = mixed_payload(120_000, seed)
+    valid = [
+        (literal(rng.bytes(100_000).tobytes()), 100_000),
+        (raw_body(b"r" * 131_072), 131_072),
+        (raw_body(mixed), len(mixed)),
+    ]
+    cases = valid + [(raw_body(mixed[:FRAME]), 131_072)]
+    for body, n in valid:
+        cases += [(body[: len(body) // 2], n), (body[:-1], n)]
+        cases += [(m, n) for m in _mutants(body, rng, 1)]
+    return cases
+
+
+def stream_cases(seed: int = 41) -> List[Tuple[bytes, int, Optional[bytes]]]:
+    """(tag stream, declared, payload or None) triples for the streaming
+    decoder: multi-window RLE and text; 65535, 65536, 65537 and 131072
+    bytes; one literal over 400 KB; copy-4 tags reaching more than 64 KiB
+    back, one of them over a window edge, and one reaching a byte too far;
+    literals and near and far copies cut by a window edge; six mutants of
+    the text stream; truncated input, a short and a long declared length,
+    trailing input and a copy past the declared length."""
+    rng = Rand(seed)
+    text = (b"the quick brown fox jumps over the lazy dog. " * 4000)[:140_000]
+    out: List[Tuple[bytes, int, Optional[bytes]]] = []
+    for p in (b"a" * 140_000, text, b"q" * 65535, b"q" * 65536, b"q" * 65537, b"q" * 131_072):
+        out.append((raw_body(p), len(p), p))
+    lit = rng.bytes(400_000).tobytes()
+    out.append((literal(lit), len(lit), lit))
+    head = rng.bytes(131_072).tobytes()
+    body = literal(head[:70_000]) + copy4(70_000, 64) + literal(head[70_064:131_062]) + copy4(100_000, 40)
+    p = head[:70_000] + head[:64] + head[70_064:131_062]  # 131,062 bytes
+    p += p[len(p) - 100_000 : len(p) - 100_000 + 40]
+    out.append((body, len(p), p))
+    out.append((literal(head[:70_000]) + copy4(70_001, 8), 70_008, None))
+    for cut in (1, 2, 17, 32):
+        # a literal over the 64 KiB edge and a near (offset 3) copy over the
+        # 128 KiB edge; a copy over the 128 KiB edge whose rest lies more
+        # than 64 KiB behind the new window
+        a = FRAME - cut
+        p = head[: a + 2 * cut] + head[: 131_072 - cut - (a + 2 * cut)]
+        body = literal(head[:a]) + literal(head[a : a + 2 * cut]) + literal(p[a + 2 * cut :])
+        for k in range(2 * cut):
+            p += p[-3:-2]
+        out.append((body + copy2(3, 2 * cut), len(p), p))
+        p = head[: 131_072 - cut]
+        for k in range(2 * cut):
+            p += p[len(p) - 65_541 - cut : len(p) - 65_540 - cut]
+        out.append((literal(head[: 131_072 - cut]) + copy4(65_541 + cut, 2 * cut), len(p), p))
+    base = raw_body(text)
+    out += [(m, len(text), None) for m in _mutants(base, rng, 6)]
+    out.append((base[:-3], len(text), None))
+    out.append((base, len(text) - 1, None))
+    out.append((base, len(text) + 1, None))
+    out.append((base + b"\x00", len(text), None))
+    out.append((base + copy2(1, 4), len(text), None))
     return out

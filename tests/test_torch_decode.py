@@ -3,9 +3,11 @@
 The plain version is held against the TPU kernel itself, run through the
 Pallas interpreter (decode_scalar.decode_chunks_words with interpret=True)
 on streams of 2 KiB or less, and against the host C decoder on 64 KiB
-chunks.  Verdicts (ok), written counts and bytes must be equal.  The CUDA
-kernel's source compiled by g++ (the twin) is held against the plain
-version on the same inputs.
+chunks; at the big-window shape (W = 131072) against the TPU kernel at
+that shape (decode_scalar.decode_raw_batch_words, interpreted).  Verdicts
+(ok), written counts and bytes must be equal.  The CUDA kernel's source
+compiled by g++ (the twin) is held against the plain version on the same
+inputs.
 """
 
 import random
@@ -169,10 +171,77 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(TypeError):
         decode_chunks.decode_chunks(comp, offsets.to(torch.int32), decl, torch.empty((1, 64), dtype=torch.uint8))
     with pytest.raises(ValueError):
-        decode_chunks.decode_chunks(comp, offsets, decl, torch.empty((1, 65552), dtype=torch.uint8))
+        decode_chunks.decode_chunks(comp, offsets, decl, torch.empty((1, 131088), dtype=torch.uint8))
     with pytest.raises(ValueError):
         decode_chunks.decode_chunks(comp, offsets, torch.tensor([65], dtype=torch.int32),
                                     torch.empty((1, 64), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("host", [False, True])
+@pytest.mark.parametrize("bad", ["offsets_past_end", "offsets_negative", "offsets_decrease", "declared_over_w", "declared_negative"])
+def test_wrapper_rejects_bad_values(bad, host):
+    """Each value refusal, from the tensors themselves and from the host
+    arrays a caller passes as ``host_values``."""
+    offsets = np.array([0, 2, 4], dtype=np.int64)
+    declared = np.array([1, 1], dtype=np.int32)
+    if bad == "offsets_past_end":
+        offsets[-1] = 5
+    elif bad == "offsets_negative":
+        offsets[0] = -1
+    elif bad == "offsets_decrease":
+        offsets[1] = 5
+    elif bad == "declared_over_w":
+        declared[1] = 65
+    else:
+        declared[0] = -1
+    comp = torch.from_numpy(np.frombuffer(b"\x00a\x00b", dtype=np.uint8).copy())
+    out = torch.empty((2, 64), dtype=torch.uint8)
+    kw = {"host_values": (offsets, declared)} if host else {}
+    with pytest.raises(ValueError):
+        decode_chunks.decode_chunks(comp, torch.from_numpy(offsets), torch.from_numpy(declared), out, **kw)
+
+
+def test_wrapper_accepts_good_values():
+    comp = torch.from_numpy(np.frombuffer(b"\x00a\x00b", dtype=np.uint8).copy())
+    offsets, declared = np.array([0, 2, 4], dtype=np.int64), np.array([1, 1], dtype=np.int32)
+    out = torch.empty((2, 64), dtype=torch.uint8)
+    ok, written = decode_chunks.decode_chunks(
+        comp, torch.from_numpy(offsets), torch.from_numpy(declared), out, host_values=(offsets, declared))
+    assert ok.all() and written.tolist() == [1, 1] and out[:, 0].tolist() == [97, 98]
+
+
+BIG = decode_chunks.MAX_OUT
+
+
+def run_plain_big(cases):
+    comp, offsets = ragged([b for b, _ in cases])
+    declared = torch.tensor([n for _, n in cases], dtype=torch.int32)
+    out = torch.empty((len(cases), BIG), dtype=torch.uint8)
+    ok, written = decode_chunks.decode_chunks(comp, offsets, declared, out)
+    return ok.numpy(), written.numpy(), out.numpy()
+
+
+def test_big_window_plain_matches_tpu_kernel_interpreted():
+    cases = payloads.big_window_cases()
+    meta, comp_words = decode_scalar.pack_raw_batch([b for b, _ in cases], [n for _, n in cases])
+    out_w, status = decode_scalar.decode_raw_batch_words(meta, comp_words, len(cases), interpret=True)
+    status = np.asarray(status)
+    want = np.ascontiguousarray(np.asarray(out_w)).view(np.uint8)
+    ok, written, out = run_plain_big(cases)
+    assert np.array_equal(ok, status[:, 0, 0] == 1)
+    assert np.array_equal(written, status[:, 0, 1])
+    for k, w in enumerate(written):
+        assert np.array_equal(out[k, :w], want[k, 0, :w]), k
+        assert not out[k, w:].any(), k
+    assert ok[:3].all() and not ok[3:5].any()
+
+
+def test_big_window_counts_its_own_launches():
+    """The wrapper counts launches at W <= 65536 and W > 65536 apart (a CPU
+    tensor runs the plain version and counts nothing)."""
+    before = (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG)
+    run_plain_big(payloads.big_window_cases()[:1])
+    assert (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG) == before
 
 
 @pytest.fixture(scope="module")
@@ -180,6 +249,25 @@ def twin():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not available to build the CPU twin")
     return _build.twin_lib()
+
+
+def test_big_window_twin_matches_plain(twin):
+    cases = payloads.big_window_cases()
+    comp, offsets = ragged([b for b, _ in cases])
+    declared = np.array([n for _, n in cases], dtype=np.int32)
+    comp, offsets = comp.numpy(), offsets.numpy()
+    out = np.full((len(cases), BIG), 0xAA, dtype=np.uint8)
+    ok = np.zeros(len(cases), dtype=np.uint8)
+    written = np.zeros(len(cases), dtype=np.int32)
+    rc = twin.stpu_twin_decode_chunks(
+        comp.ctypes.data, offsets.ctypes.data, declared.ctypes.data, len(cases),
+        out.ctypes.data, BIG, ok.ctypes.data, written.ctypes.data,
+    )
+    assert rc == 0
+    pok, pwritten, pout = run_plain_big(cases)
+    assert np.array_equal(ok.astype(bool), pok)
+    assert np.array_equal(written, pwritten)
+    assert np.array_equal(out, pout)
 
 
 @pytest.mark.parametrize("which", ["small", "big"])

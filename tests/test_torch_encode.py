@@ -1,11 +1,11 @@
-"""The port's level-1 block encoder (kernel K3) against the JAX package
-(exact bytes).
+"""The port's block encoder (kernel K3) at levels 1 and 2 against the JAX
+package (exact bytes).
 
 The plain version is held against the TPU kernel itself, run through the
 Pallas interpreter (encode_scalar.encode_blocks_words with interpret=True,
-ways=1) on small blocks, and against the host C encoder
-(snappy_tpu.engine.raw_compress(backend="host"), level 1) on 64 KiB
-blocks.  The CUDA kernel's source compiled by g++ (the twin) is held
+ways=1 and ways=2) on small blocks, and against the host C encoder
+(snappy_tpu.engine.raw_compress(backend="host") at the same level) on
+64 KiB blocks.  The CUDA kernel's source compiled by g++ (the twin) is held
 against the plain version on the same inputs.
 """
 
@@ -28,9 +28,9 @@ from snappy_tpu_torch.testing import payloads  # noqa: E402
 from test_scalar_kernels import PAYLOADS  # noqa: E402
 
 
-def host_block(data: bytes) -> bytes:
-    """Host C level-1 encoding of one block, without the varint header."""
-    enc = engine.raw_compress(data, backend="host", level=1)
+def host_block(data: bytes, level: int = 1) -> bytes:
+    """Host C encoding of one block, without the varint header."""
+    enc = engine.raw_compress(data, backend="host", level=level)
     _, read = varint.decode_uint32(enc)
     return enc[read:]
 
@@ -49,12 +49,12 @@ def big_blocks():
     return blocks + [mixed[k : k + 65536] for k in range(0, len(mixed), 65536)]
 
 
-def run_plain(blocks):
+def run_plain(blocks, level=1):
     rows = np.zeros((len(blocks), 65536), dtype=np.uint8)
     for k, b in enumerate(blocks):
         rows[k, : len(b)] = np.frombuffer(b, dtype=np.uint8)
     lens = torch.tensor([len(b) for b in blocks], dtype=torch.int32)
-    enc, enc_len = encode_blocks.encode_blocks(torch.from_numpy(rows), lens)
+    enc, enc_len = encode_blocks.encode_blocks(torch.from_numpy(rows), lens, level)
     return [enc[k, :n].numpy().tobytes() for k, n in enumerate(enc_len.tolist())]
 
 
@@ -90,6 +90,40 @@ def test_wrapper_rejects_bad_inputs():
         encode_blocks.encode_blocks(torch.zeros((1, 64), dtype=torch.uint8), torch.tensor([65], dtype=torch.int32))
 
 
+def l2_blocks():
+    """Blocks of 2 KiB or less where level 2 finds other matches than
+    level 1 (recurring words, runs), and the size edges."""
+    rng = random.Random(17)
+    words = [bytes(rng.randrange(97, 123) for _ in range(rng.randrange(2, 7))) for _ in range(40)]
+    text = b" ".join(rng.choice(words) for _ in range(600))[:2048]
+    return small_blocks()[:8] + [text, text[:700], b"q" * 2000, bytes(rng.randrange(3) for _ in range(1500))]
+
+
+def test_level2_plain_matches_tpu_kernel_interpreted():
+    blocks = l2_blocks()
+    meta, in_words = encode_scalar.pack_blocks(blocks)
+    enc_w, elen = encode_scalar.encode_blocks_words(meta, in_words, len(blocks), interpret=True, level=2)
+    want = encode_scalar.unpack_enc(np.asarray(enc_w), np.asarray(elen)[:, 0, 0])
+    assert run_plain(blocks, level=2) == want
+    # level 2 makes other choices than level 1 on these blocks
+    assert want != run_plain(blocks, level=1)
+
+
+def test_level2_plain_matches_host_c_on_64k_blocks():
+    blocks = big_blocks()
+    got = run_plain(blocks, level=2)
+    for k, b in enumerate(blocks):
+        assert got[k] == host_block(b, level=2), k
+    assert sum(map(len, got)) < sum(map(len, run_plain(blocks, level=1)))
+
+
+def test_level_maps_to_ways():
+    """level >= 2 selects ways=2, as engine.py:222 does."""
+    blocks = l2_blocks()[8:9]
+    assert run_plain(blocks, level=3) == run_plain(blocks, level=2) != run_plain(blocks, level=1)
+    assert run_plain(blocks, level=0) == run_plain(blocks, level=1)
+
+
 @pytest.fixture(scope="module")
 def twin():
     if shutil.which("g++") is None:
@@ -97,9 +131,7 @@ def twin():
     return _build.twin_lib()
 
 
-@pytest.mark.parametrize("which", ["small", "big"])
-def test_twin_matches_plain(twin, which):
-    blocks = small_blocks() if which == "small" else big_blocks()
+def run_twin(twin, blocks, ways):
     rows = np.zeros((len(blocks), 65536), dtype=np.uint8)
     for k, b in enumerate(blocks):
         rows[k, : len(b)] = np.frombuffer(b, dtype=np.uint8)
@@ -108,8 +140,19 @@ def test_twin_matches_plain(twin, which):
     enc_len = np.zeros(len(blocks), dtype=np.int32)
     rc = twin.stpu_twin_encode_blocks(
         rows.ctypes.data, 65536, lens.ctypes.data, len(blocks),
-        enc.ctypes.data, encode_blocks.ENC_CAP, enc_len.ctypes.data,
+        enc.ctypes.data, encode_blocks.ENC_CAP, enc_len.ctypes.data, ways,
     )
     assert rc == 0
-    got = [enc[k, :n].tobytes() for k, n in enumerate(enc_len)]
-    assert got == run_plain(blocks)
+    return [enc[k, :n].tobytes() for k, n in enumerate(enc_len)]
+
+
+@pytest.mark.parametrize("which", ["small", "big"])
+def test_twin_matches_plain(twin, which):
+    blocks = small_blocks() if which == "small" else big_blocks()
+    assert run_twin(twin, blocks, 1) == run_plain(blocks)
+
+
+@pytest.mark.parametrize("which", ["small", "big"])
+def test_level2_twin_matches_plain(twin, which):
+    blocks = l2_blocks() if which == "small" else big_blocks()
+    assert run_twin(twin, blocks, 2) == run_plain(blocks, level=2)

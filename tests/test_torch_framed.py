@@ -1,8 +1,8 @@
 """The port's framed encode -> decode slice against the JAX package (exact).
 
 Encode: the port's bytes (device="cpu", the kernels' plain versions) equal
-the JAX package's level-1 framed bytes (host C, which equals its TPU
-kernels).  Decode: the port's (payload, reason) equals the JAX device
+the JAX package's level-1 and level-2 framed bytes (host C, which equals
+its TPU kernels).  Decode: the port's (payload, reason) equals the JAX device
 backend's on valid streams and on the error-order cases.  The pinned
 digest that chip_smoke.py checks on the card is recomputed here from the
 JAX package.
@@ -174,9 +174,12 @@ def test_masked_crc32c_matches_jax_package(n):
     assert port.masked_crc32c(data, device="cpu") == snappy_tpu.masked_crc32c(data)
 
 
-def test_level_2_not_ported_yet():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        port.encode_framed(b"x" * 100, level=2, device="cpu")
+@pytest.mark.parametrize("size", [0, 100, 65537, 3 * 65536 + 1000])
+def test_level_2_matches_jax_package(size):
+    payload = payloads.mixed_payload(size, seed=4)
+    ours = port.encode_framed(payload, level=2, device="cpu")
+    assert ours == jax_engine.framed_compress(payload, backend="host", level=2)
+    assert port.decode_framed(ours, device="cpu") == payload
 
 
 def test_cuda_without_a_card_raises():
