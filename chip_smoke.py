@@ -1,12 +1,12 @@
-"""Drive the port's framed and raw main paths once on one CUDA card and
-check them.
+"""Drive the port's framed, raw and stream-layer paths once on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own lines:
 
 1. setup    — torch and CUDA versions, the card, its name and power limit;
-2. build    — nvcc builds the four kernel sources from
+2. build    — nvcc builds the six kernel sources from
               snappy_tpu_torch/ops/csrc into build/snappy_tpu_torch/ (first
               use, one nvcc per source, all at once);
 3. kernels  — each kernel against its plain version: CRC32C, the level-1
@@ -15,8 +15,11 @@ Phases, each reported on its own lines:
               block, a 17-byte block, an empty block), the chunk decoder
               also on malformed and truncated streams; the chunk decoder at
               its 128 KiB big-window shape on payloads.big_window_cases and
-              the streaming decoder on payloads.stream_cases (segments
-              across window edges, far copies, mutants); equal, or it fails;
+              the streaming decoders (grid mode K4, scan mode K5) on
+              payloads.stream_cases and scan_edge_cases (segments across
+              window edges, far copies, the scan's 64 KiB history limit,
+              mutants; K5's verdicts include `unsupported`); the GF(2) CRC
+              (K6) on the 8 blocks; equal, or it fails;
 4. framed   — encode_framed / decode_framed of the seeded 48 MiB mixed
               payload: the stream's SHA-256 equals the digest pinned from
               the JAX package and decodes back to the payload; then the
@@ -27,27 +30,46 @@ Phases, each reported on its own lines:
               decode_batch of the seeded serving batch against the plain
               versions, compress_into / uncompress_into, and
               encode_framed(level=2) against its digest;
-6. counters — each kernel was launched by its main path (4 or 5), the
+6. streams  — the stream layer: the sync adapters and the asyncio ones
+              (over an in-memory StreamReader) on the 48 MiB payload (the
+              framed-L1 and raw-L1 digests, and back to the payload);
+              uncompress_framed_into through 1 MiB and 8 MiB buffers with
+              re-entry, and payloads.framed_vectors against their pinned
+              results; cli.main in a temporary directory: framed L1 and
+              L2 round trips, then `-d --raw` with SNAPPY_TPU_STREAM_MODE=scan
+              set for the call (K5), and a far-copy stream (K5, then K4);
+7. fused CRC — crc32c_mma.masked_crc32c_chunks_fused over the 769 frames
+              of the payload, equal to K1's CRCs of the same frames;
+8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
               counts set to 0 just before each path and read just after;
-7. timings  — each kernel at its main-path shape and on its small set
-              beside its plain version, and the end-to-end rates.
+9. timings  — each kernel at its main-path shape and on its small set
+              beside its plain version, its bound on the card, and the
+              end-to-end rates.
 
 Any failure raises and the exit code is not 0.  The line before the last
-is a JSON object of the kernels: per kernel, the launch count of its main
-path, the largest difference from its plain version, ``ms`` (one launch at
-the main-path shape), ``plain_ms`` (the plain version on the small set) and
-``ms_small`` (the kernel on that same set).  The last line is the JSON
+is a JSON object of the kernels: per kernel, the launch count of its path,
+the largest difference from its plain version, ``ms`` (one call at the
+main-path shape), ``plain_ms`` (the plain version on the small set),
+``ms_small`` (the kernel on that same set), ``bound_ms`` (the larger of the
+bytes the call moves over 3.35 TB/s and its int8 operations over 1,979
+TOP/s, from this run's inputs) with ``bound_by``, and ``library_ms`` (null:
+no single PyTorch call computes any of these functions).  The last line is the JSON
 result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import hashlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,7 +89,35 @@ KERNELS = {
                           "snappy_tpu/ops/decode_scalar.py:450", "raw"),
     "decode_stream": ("snappy_tpu_torch/ops/csrc/decode_stream.cu",
                       "snappy_tpu/ops/decode_stream.py:799", "raw"),
+    "decode_stream_scan": ("snappy_tpu_torch/ops/csrc/decode_stream_scan.cu",
+                           "snappy_tpu/ops/decode_stream.py:75", "streams"),
+    "crc32c_mma": ("snappy_tpu_torch/ops/csrc/crc32c_mma.cu",
+                   "snappy_tpu/ops/crc32c_mxu.py:165", "fused_crc"),
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate, dense int8 tensor-core peak
+INT8_OPS_PER_S = 1.979e15
+
+
+def bound(nbytes: int, int8_ops: int = 0):
+    """(least ms, what bounds it) for a call that moves nbytes and does
+    int8_ops tensor-core operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int8_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def stream_mode(mode: str):
+    """SNAPPY_TPU_STREAM_MODE set to ``mode`` inside, restored after."""
+    old = os.environ.get("SNAPPY_TPU_STREAM_MODE")
+    os.environ["SNAPPY_TPU_STREAM_MODE"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SNAPPY_TPU_STREAM_MODE"]
+        else:
+            os.environ["SNAPPY_TPU_STREAM_MODE"] = old
 
 
 def card_label() -> str:
@@ -133,12 +183,13 @@ def main() -> None:
     # 1. setup ---------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available")
-    from snappy_tpu_torch import api, engine
+    from snappy_tpu_torch import api, cli, engine
     from snappy_tpu_torch.formats import constants as C
     from snappy_tpu_torch.formats import framing, varint
     from snappy_tpu_torch.ops import (
-        _build, crc32c, decode_chunks, decode_stream, encode_blocks, host_codec,
+        _build, crc32c, crc32c_mma, decode_chunks, decode_stream, encode_blocks, host_codec,
     )
+    from snappy_tpu_torch.streams import aio, sync
     from snappy_tpu_torch.testing import payloads
 
     def counts():
@@ -149,11 +200,14 @@ def main() -> None:
             "encode_blocks_l2": encode_blocks.LAUNCHES_L2,
             "decode_chunks_big": decode_chunks.LAUNCHES_BIG,
             "decode_stream": decode_stream.LAUNCHES,
+            "decode_stream_scan": decode_stream.LAUNCHES_SCAN,
+            "crc32c_mma": crc32c_mma.LAUNCHES,
         }
 
     def reset_counts():
         crc32c.LAUNCHES = decode_chunks.LAUNCHES = decode_chunks.LAUNCHES_BIG = 0
         encode_blocks.LAUNCHES = encode_blocks.LAUNCHES_L2 = decode_stream.LAUNCHES = 0
+        decode_stream.LAUNCHES_SCAN = crc32c_mma.LAUNCHES = 0
 
     dev = torch.device("cuda:0")
     card = card_label()
@@ -252,10 +306,38 @@ def main() -> None:
         st_dev.append((comp_d, m, out_d))
     err["decode_stream"] = s_err
     assert s_err == 0, "decode_stream bytes differ from the plain version"
-    print(f"kernels: crc32c, encode_blocks (levels 1 and 2), decode_chunks equal their plain "
-          f"versions on {len(blocks)} blocks and {len(cases) - len(blocks)} malformed/truncated "
-          f"streams; decode_chunks at W={BIG} on {len(big_cases)} big-window cases; "
-          f"decode_stream on {len(st_cases)} stream cases (tolerance: exact)")
+
+    sc_cases = [(b, m) for b, m, _ in st_cases + payloads.scan_edge_cases()]
+    sc_dev = []  # (comp on the card, comp on the host, declared, out on the card)
+    sc_err, verdicts = 0, set()
+    for body, m in sc_cases:
+        comp_h = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy())
+        comp_d = comp_h.to(dev)
+        out_d = torch.zeros(max(m, 1), dtype=torch.uint8, device=dev)
+        state, wr = decode_stream.decode_stream_scan(comp_d, m, out_d)
+        pout = torch.zeros(max(m, 1), dtype=torch.uint8)
+        pstate, pwr = decode_stream.decode_stream_scan(comp_h, m, pout)
+        assert torch.equal(state.cpu(), pstate) and torch.equal(wr.cpu(), pwr), \
+            ("decode_stream_scan state", len(body), m, state.cpu().tolist(), pstate.tolist())
+        w = int(pstate[decode_stream.S_WRITTEN])
+        d = (out_d[:w].cpu().to(torch.int32) - pout[:w].to(torch.int32)).abs()
+        sc_err = max(sc_err, int(d.max()) if w else 0)
+        ok, _, unsup, _, _ = decode_stream.scan_status(pstate.tolist(), len(body), m)
+        verdicts.add("ok" if ok else "unsupported" if unsup else "invalid")
+        sc_dev.append((comp_d, comp_h, m, out_d))
+    err["decode_stream_scan"] = sc_err
+    assert sc_err == 0, "decode_stream_scan bytes differ from the plain version"
+    assert verdicts == {"ok", "invalid", "unsupported"}, verdicts
+
+    got = crc32c_mma.masked_crc32c_chunks_fused(frames, lens).cpu()
+    want = crc32c_mma._crc32c_mma_plain(frames_h, lens_h)
+    err["crc32c_mma"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    assert torch.equal(got, want), ("crc32c_mma", got, want)
+    print(f"kernels: crc32c, crc32c_mma, encode_blocks (levels 1 and 2), decode_chunks equal "
+          f"their plain versions on {len(blocks)} blocks and {len(cases) - len(blocks)} "
+          f"malformed/truncated streams; decode_chunks at W={BIG} on {len(big_cases)} big-window "
+          f"cases; decode_stream on {len(st_cases)} and decode_stream_scan on {len(sc_cases)} "
+          f"stream cases (verdicts {sorted(verdicts)}) (tolerance: exact)")
 
     # 4. framed main path ----------------------------------------------------
     payload = payloads.mixed_payload()
@@ -339,17 +421,142 @@ def main() -> None:
           f"{sum(map(len, serving))} bytes) equals the plain versions; compress_into / "
           f"uncompress_into of 1 MiB round-trip; framed L2 decodes back")
 
-    # 6. counters ------------------------------------------------------------
-    print(f"counters: framed main path {framed_launches}")
-    print(f"counters: raw main path {raw_launches}")
+    # 6. the stream layer ----------------------------------------------------
+    def run_pipe(feed: bytes, coro_factory) -> bytes:
+        async def run():
+            reader = asyncio.StreamReader()
+            reader.feed_data(feed)
+            reader.feed_eof()
+            sink = bytearray()
+
+            class Sink:
+                def write(self, data):
+                    sink.extend(data)
+
+                async def drain(self):
+                    await asyncio.sleep(0)
+
+            await coro_factory(reader, Sink())
+            return bytes(sink)
+
+        return asyncio.run(run())
+
+    def resume_into(data: bytes, size: int):
+        """uncompress_framed_into through buffers of ``size`` bytes,
+        re-entered with data[read:] until the input is used up."""
+        steps, parts, first = [], [], True
+        while data:
+            buf = bytearray(size)
+            res = api.uncompress_framed_into(data, buf, first, device=dev)
+            assert res.is_ok(), ("uncompress_framed_into", size, res)
+            read, written = res.value
+            assert read and written <= size, (read, written, size)
+            steps.append((read, written))
+            parts.append(bytes(buf[:written]))
+            data, first = data[read:], False
+        return steps, b"".join(parts)
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    far_body, far_m, far_payload = payloads.scan_edge_cases()[1]
+    reset_counts()
+    dst = io.BytesIO()
+    sync.compress_framed(io.BytesIO(payload), dst, device=dev)
+    sync_framed = dst.getvalue()
+    dst = io.BytesIO()
+    sync.compress(io.BytesIO(payload), len(payload), dst, device=dev)
+    sync_raw = dst.getvalue()
+    dst = io.BytesIO()
+    sync.uncompress_framed(io.BytesIO(sync_framed), dst, device=dev)
+    sync_back = dst.getvalue()
+    aio_framed = run_pipe(payload, lambda r, w: aio.compress_framed(r, w, device=dev))
+    aio_raw = run_pipe(payload, lambda r, w: aio.compress(r, len(payload), w, device=dev))
+    aio_back = run_pipe(stream, lambda r, w: aio.uncompress_framed(r, w, device=dev))
+    into = {size: resume_into(stream, size) for size in (1 << 20, 8 << 20)}
+    vectors = []
+    for name, data, budget, check_integrity, expected in payloads.framed_vectors():
+        res = api.uncompress_framed_into(data, bytearray(budget), True, check_integrity, device=dev)
+        got_v = ("ok",) + tuple(res.value) if res.is_ok() else ("err", res.error.name)
+        vectors.append((name, got_v, expected))
+    cli_out = {}
+    with tempfile.TemporaryDirectory() as td:
+        def path(name):
+            return os.path.join(td, name)
+
+        with open(path("payload"), "wb") as f:
+            f.write(payload)
+        for level in (1, 2):
+            assert cli.main(["-l", str(level), "-o", path(f"l{level}.sz"), path("payload")]) == 0
+            assert cli.main(["-d", "-o", path(f"l{level}.out"), path(f"l{level}.sz")]) == 0
+        with open(path("raw.rawsz"), "wb") as f:
+            f.write(sync_raw)
+        with open(path("far.rawsz"), "wb") as f:
+            f.write(varint.encode_uint32(far_m) + far_body)
+        cli_launches = {}
+        with stream_mode("scan"):
+            for name in ("raw", "far"):
+                before = (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES)
+                assert cli.main(["-d", "--raw", "-o", path(f"{name}.out"), path(f"{name}.rawsz")]) == 0
+                cli_launches[name] = (decode_stream.LAUNCHES_SCAN - before[0],
+                                      decode_stream.LAUNCHES - before[1])
+        for name in ("l1.sz", "l1.out", "l2.sz", "l2.out", "raw.out", "far.out"):
+            with open(path(name), "rb") as f:
+                cli_out[name] = f.read()
+    stream_launches = counts()
+
+    for name, got_s, pinned in (("sync compress_framed", sync_framed, payloads.GOLDEN_SHA256),
+                                ("aio compress_framed", aio_framed, payloads.GOLDEN_SHA256),
+                                ("sync compress", sync_raw, payloads.RAW_L1_SHA256),
+                                ("aio compress", aio_raw, payloads.RAW_L1_SHA256),
+                                ("cli -l 1", cli_out["l1.sz"], payloads.GOLDEN_SHA256),
+                                ("cli -l 2", cli_out["l2.sz"], payloads.FRAMED_L2_SHA256)):
+        assert sha(got_s) == pinned, (name, sha(got_s))
+    for name, back in (("sync uncompress_framed", sync_back), ("aio uncompress_framed", aio_back),
+                       ("cli -d (L1)", cli_out["l1.out"]), ("cli -d (L2)", cli_out["l2.out"]),
+                       ("cli -d --raw (scan mode)", cli_out["raw.out"])):
+        assert back == payload, f"{name} did not return the payload"
+    assert cli_out["far.out"] == far_payload, "cli -d --raw of the far-copy stream"
+    for size, (steps, back) in into.items():
+        assert back == payload, ("uncompress_framed_into re-entry", size)
+        assert sum(r for r, _ in steps) == len(stream) and len(steps) >= len(payload) // size
+    for name, got_v, expected in vectors:
+        assert got_v[: len(expected)] == expected, (name, got_v, expected)
+    assert cli_launches["raw"][0] > 0 and cli_launches["raw"][1] == 0, cli_launches
+    assert cli_launches["far"][0] > 0 and cli_launches["far"][1] > 0, cli_launches
+    print(f"streams: sync and aio compress_framed / compress of the payload equal the pinned "
+          f"framed-L1 / raw-L1 digests and uncompress_framed returns the payload; "
+          f"uncompress_framed_into re-entered {len(into[1 << 20][0])} times through 1 MiB and "
+          f"{len(into[8 << 20][0])} through 8 MiB buffers returns the payload; {len(vectors)} "
+          f"framed vectors give their pinned results; cli framed L1 / L2 round trips match the "
+          f"digests; cli -d --raw in scan mode launched (K5, K4) {cli_launches['raw']} times, "
+          f"and on a far-copy stream {cli_launches['far']}")
+
+    # 7. the fused CRC --------------------------------------------------------
+    all_frames, all_lens = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
+    reset_counts()
+    fused = crc32c_mma.masked_crc32c_chunks_fused(all_frames, all_lens)
+    fused_launches = counts()
+    by_k1 = crc32c.masked_crc32c_chunks(all_frames, all_lens)
+    assert torch.equal(fused.cpu(), by_k1.cpu()), "crc32c_mma differs from crc32c on the frames"
+    print(f"fused CRC: crc32c_mma equals crc32c on the {len(all_lens)} frames of the payload")
+
+    # 8. counters ------------------------------------------------------------
+    path_launches = {"framed": framed_launches, "raw": raw_launches,
+                     "streams": stream_launches, "fused_crc": fused_launches}
+    for name, got_c in path_launches.items():
+        print(f"counters: {name} path {got_c}")
     for name in ("crc32c", "decode_chunks", "encode_blocks"):
         assert framed_launches[name] > 0, f"the framed main path never launched {name}"
-    for name, n in raw_launches.items():
-        assert n > 0, f"the raw main path never launched {name}"
-    launches = {name: (framed_launches if path == "framed" else raw_launches)[name]
-                for name, (_, _, path) in KERNELS.items()}
+    for name in ("encode_blocks_l2", "decode_chunks_big", "decode_stream", "crc32c",
+                 "decode_chunks", "encode_blocks"):
+        assert raw_launches[name] > 0, f"the raw main path never launched {name}"
+    for name in ("decode_stream_scan", "crc32c", "decode_chunks", "encode_blocks"):
+        assert stream_launches[name] > 0, f"the stream layer never launched {name}"
+    assert fused_launches["crc32c_mma"] > 0, "the fused CRC path never launched crc32c_mma"
+    launches = {name: path_launches[p][name] for name, (_, _, p) in KERNELS.items()}
 
-    # 7. timings -------------------------------------------------------------
+    # 9. timings -------------------------------------------------------------
     nf = payloads.MAIN_PATH_FRAMES
     arr = np.frombuffer(payload, dtype=np.uint8)[: nf * 65536]
     big = torch.from_numpy(arr.copy()).view(nf, 65536).to(dev)
@@ -360,6 +567,9 @@ def main() -> None:
     encode_blocks._launch(big, big_lens, big_enc, big_elen)
     big_elen_h = big_elen.cpu()
     big_enc_h = big_enc.cpu().numpy()
+    l1_bytes = int(big_elen_h.sum())
+    encode_blocks._launch(big, big_lens, big_enc, big_elen, 2)
+    l2_bytes = int(big_elen.sum())
     bcomp, boffs = ragged([big_enc_h[k, :n].tobytes() for k, n in enumerate(big_elen_h.tolist())])
     bcomp, boffs = bcomp.to(dev), boffs.to(dev)
     big_out = torch.empty((nf, 65536), dtype=torch.uint8, device=dev)
@@ -384,6 +594,21 @@ def main() -> None:
     r_comp = torch.from_numpy(np.frombuffer(r_body, dtype=np.uint8).copy()).to(dev)
     r_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
     r_status = torch.empty(3, dtype=torch.int64, device=dev)
+    r_out_scan = torch.empty(len(payload), dtype=torch.uint8, device=dev)
+    scan_result = {}
+    fused_out = torch.empty(nf, dtype=torch.uint32, device=dev)
+    s_fused = torch.empty(len(blocks), dtype=torch.uint32, device=dev)
+
+    def scan_main():
+        scan_result["state"], _ = decode_stream.decode_stream_scan(r_comp, len(payload), r_out_scan)
+
+    def scan_set_kernel():
+        for comp_d, _, m, out_d in sc_dev:
+            decode_stream.decode_stream_scan(comp_d, m, out_d)
+
+    def scan_set_plain():
+        for _, comp_h, m, _ in sc_dev:
+            decode_stream.decode_stream_scan(comp_h, m, torch.empty(max(m, 1), dtype=torch.uint8))
 
     s_out = torch.empty(len(blocks), dtype=torch.uint32, device=dev)
     s_enc = torch.empty((len(blocks), encode_blocks.ENC_CAP), dtype=torch.uint8, device=dev)
@@ -410,51 +635,84 @@ def main() -> None:
         for comp_h, m in st_host:
             decode_stream._decode_stream_plain(comp_h, m, torch.empty(max(m, 1), dtype=torch.uint8))
 
+    sb_payload = int(sb_decl.sum())
+    stream_bytes = len(r_body) + len(payload)
     timing = {
         # name: (main-path shape, its description, bytes out, reps,
-        #        kernel on the small set, plain on the small set, small set)
+        #        kernel on the small set, plain on the small set, small set,
+        #        bytes the main-path call moves, its int8 operations)
         "crc32c": (lambda: crc32c._launch(big, big_lens, crc_out),
                    f"{nf} x 64 KiB chunks", nf * 65536, 10,
                    lambda: crc32c._launch(frames, lens, s_out),
-                   lambda: crc32c._crc32c_plain(frames_h, lens_h), "8 chunks"),
+                   lambda: crc32c._crc32c_plain(frames_h, lens_h), "8 chunks",
+                   nf * 65536 + 8 * nf, 0),
         "encode_blocks": (lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen),
                           f"{nf} x 64 KiB blocks", nf * 65536, 10,
                           lambda: encode_blocks._launch(frames, lens, s_enc, s_elen),
-                          lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h), "8 blocks"),
+                          lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h), "8 blocks",
+                          nf * 65536 + l1_bytes + 8 * nf, 0),
         "encode_blocks_l2": (lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen, 2),
                              f"{nf} x 64 KiB blocks", nf * 65536, 10,
                              lambda: encode_blocks._launch(frames, lens, s_enc, s_elen, 2),
-                             lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h, 2), "8 blocks"),
+                             lambda: encode_blocks._encode_blocks_plain(frames_h, lens_h, 2), "8 blocks",
+                             nf * 65536 + l2_bytes + 8 * nf, 0),
         "decode_chunks": (lambda: decode_chunks._launch(bcomp, boffs, big_lens, big_out, big_ok, big_w),
                           f"{nf} chunks", nf * 65536, 10,
                           lambda: decode_chunks._launch(s_comp, s_offs, lens, s_dout, s_ok, s_w),
                           lambda: decode_chunks._decode_chunks_plain(s_comp_h, s_offs_h, lens_h, s_pout),
-                          "8 chunks"),
+                          "8 chunks", bcomp.numel() + 8 * (nf + 1) + 4 * nf + nf * 65536 + 5 * nf, 0),
         "decode_chunks_big": (lambda: decode_chunks._launch(sb_comp, sb_offs, sb_decl, sb_out, sb_ok, sb_w),
                               f"{len(straddle)} unsplittable serving streams at W={BIG}",
-                              int(sb_decl.sum()), 10,
+                              sb_payload, 10,
                               lambda: decode_chunks._launch(bw_comp_d, bw_offs_d, bw_decl_d, bw_out, bw_ok, bw_w),
                               lambda: decode_chunks._decode_chunks_plain(bw_comp, bw_offs, bw_decl, bw_pout),
-                              f"{len(big_cases)} big-window cases"),
+                              f"{len(big_cases)} big-window cases",
+                              sb_comp.numel() + 8 * (len(straddle) + 1) + sb_payload + 9 * len(straddle), 0),
         "decode_stream": (lambda: decode_stream._launch(r_comp, len(payload), r_out, r_status),
                           f"the {len(r_body)}-byte level-1 stream of the payload", len(payload), 2,
-                          stream_set_kernel, stream_set_plain, f"{len(st_cases)} stream cases"),
+                          stream_set_kernel, stream_set_plain, f"{len(st_cases)} stream cases",
+                          stream_bytes + 24, 0),
+        "decode_stream_scan": (scan_main,
+                               f"the {len(r_body)}-byte level-1 stream of the payload, "
+                               f"{decode_stream.n_steps(len(r_body), len(payload))} steps",
+                               len(payload), 1, scan_set_kernel, scan_set_plain,
+                               f"{len(sc_dev)} stream cases", stream_bytes + 128, 0),
+        "crc32c_mma": (lambda: crc32c_mma._launch(big, big_lens, fused_out),
+                       f"{nf} x 64 KiB chunks", nf * 65536, 10,
+                       lambda: crc32c_mma._launch(frames, lens, s_fused),
+                       lambda: crc32c_mma._crc32c_mma_plain(frames_h, lens_h), "8 chunks",
+                       nf * 65536 + 8 * nf + 4 * len(crc32c_mma.consts()), 2 * nf * 65536 * 8 * 32),
     }
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
-        main_fn, shape, nbytes, reps, small_fn, plain_fn, small_set = timing[name]
+        main_fn, shape, nbytes, reps, small_fn, plain_fn, small_set, moved, ops = timing[name]
         ms = event_ms(main_fn, reps)
         ms_small = event_ms(small_fn, 3)
         plain_ms = host_ms(plain_fn, 1)
+        bound_ms, bound_by = bound(moved, ops)
         print(f"timing: {name} kernel {ms:.4f} ms for {shape} ({nbytes / ms / 1e6:.3f} GB/s "
-              f"of output); on {small_set} kernel {ms_small:.4f} ms, plain {plain_ms:.2f} ms {tag}")
+              f"of output; bound {bound_ms:.4f} ms by {bound_by}: {moved} bytes, {ops} int8 ops); "
+              f"on {small_set} kernel {ms_small:.4f} ms, plain {plain_ms:.2f} ms {tag}")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                      "ms_small": ms_small, "shape": shape, "small_set": small_set})
     torch.cuda.synchronize()
-    assert int(r_status[0]) == 1 and torch.equal(r_out.cpu(), torch.frombuffer(bytearray(payload), dtype=torch.uint8)), \
+    payload_t = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+    assert int(r_status[0]) == 1 and torch.equal(r_out.cpu(), payload_t), \
         "streaming decode of the 48 MiB stream"
+    scan_status = decode_stream.scan_status(scan_result["state"].cpu().tolist(), len(r_body), len(payload))
+    assert scan_status[0] == 1 and torch.equal(r_out_scan.cpu(), payload_t), \
+        ("scan-mode decode of the 48 MiB stream", scan_status)
+    assert torch.equal(fused_out.cpu(), crc_out.cpu()), "crc32c_mma at the main-path shape"
+
+    def sync_uncompress():
+        sync.uncompress_framed(io.BytesIO(stream), io.BytesIO(), device=dev)
+
+    def scan_decode():
+        with stream_mode("scan"):
+            api.decode(raw1, device=dev)
 
     batch_bytes = sum(len(e) for e in expect if e is not None)
     for name, fn, nbytes, reps in (
@@ -465,6 +723,11 @@ def main() -> None:
         ("encode L2", lambda: api.encode(payload, level=2, device=dev), len(payload), 3),
         ("decode", lambda: api.decode(raw1, device=dev), len(payload), 2),
         ("decode_batch", lambda: api.decode_batch(serving, device=dev), batch_bytes, 3),
+        ("sync compress_framed", lambda: sync.compress_framed(io.BytesIO(payload), io.BytesIO(), device=dev),
+         len(payload), 3),
+        ("sync uncompress_framed", sync_uncompress, len(payload), 3),
+        ("uncompress_framed_into 8 MiB", lambda: resume_into(stream, 8 << 20), len(payload), 3),
+        ("decode (scan mode)", scan_decode, len(payload), 1),
     ):
         best, med = e2e(fn, reps)
         print(f"timing: {name} {nbytes} bytes: best {best * 1e3:.2f} ms "

@@ -1,18 +1,22 @@
 """snappy_tpu_torch — the Snappy codec of snappy_tpu on PyTorch and CUDA.
 
 JAX counterpart: snappy_tpu/__init__.py.  This package imports torch and
-never jax.  Masked CRC32C, the chunk decoder (chunk and big-window
-shapes), the streaming raw decoder and the block encoder (levels 1 and 2)
-run as CUDA kernels written for the H100 (sm_90a), built from
+never jax.  Masked CRC32C (by table and by GF(2) products on the int8
+tensor cores), the chunk decoder (chunk and big-window shapes), the
+streaming raw decoders (grid and scan mode) and the block encoder (levels
+1 and 2) run as CUDA kernels written for the H100 (sm_90a), built from
 ``ops/csrc`` at first use; ``device="cpu"`` runs their plain PyTorch
-versions.
+versions.  ``streams`` holds the sync and asyncio adapters, ``cli`` the
+command line (``python -m snappy_tpu_torch.cli``).
 
-Public API surface so far:
+Public API surface:
 
     encode / decode                      raw format, bytes in/out
     encode_batch / decode_batch          many raw streams, shared launches
     compress_into / uncompress_into      raw format, caller buffers, Result
     encode_framed / decode_framed        framed format, bytes in/out
+    compress_framed_into                 framed, caller buffer, Result
+    uncompress_framed_into               resumable framed decode, Result
     uncompressed_len[_framed]            stream sizing
     max_compressed_len[_framed]          worst-case output sizing
     is_framed_stream                     magic sniff
@@ -20,6 +24,7 @@ Public API surface so far:
 """
 
 from .api import (  # noqa: F401
+    compress_framed_into,
     compress_into,
     decode,
     decode_batch,
@@ -28,6 +33,7 @@ from .api import (  # noqa: F401
     encode_batch,
     encode_framed,
     is_framed_stream,
+    uncompress_framed_into,
     uncompress_into,
     uncompressed_len,
     uncompressed_len_framed,

@@ -4,8 +4,9 @@ assembly.
 JAX counterpart: snappy_tpu/engine.py, its device paths: ``raw_compress``,
 ``raw_compress_batch``, ``raw_uncompress``, ``raw_uncompress_batch``,
 ``_split_blocks``, ``framed_compress``, ``framed_uncompress``,
-``framed_uncompress_chunks``, ``_framed_uncompress_device``,
-``_scan_failure_reason`` and the device ``masked_crc32c``.
+``framed_uncompress_chunks``, ``framed_uncompress_chunks_into``,
+``_framed_uncompress_device``, ``_scan_failure_reason`` and the device
+``masked_crc32c``.
 
 Each call launches each kernel once over all its rows: the JAX engine's
 512-chunk slabs and power-of-two shape buckets were there to bound TPU
@@ -147,13 +148,17 @@ def raw_uncompress(
     or (None, reason); reason in {"invalid", "too_large"}.
 
     A stream of at most 128 KiB out takes K2 at the big-window shape, any
-    larger one K4.  The JAX engine also required the body to fit K2's
-    comp capacity (``len(body) <= 4 * RAW_C_WORDS``); the port's K2 takes
+    larger one the streaming decoder in the mode that
+    ``SNAPPY_TPU_STREAM_MODE`` names (engine.py:357-386): K4 in grid mode
+    (the default), K5 in scan mode.  Scan mode's ``unsupported`` verdict (a
+    copy reaching more than 64 KiB behind its window) routes the stream to
+    K4, which serves every copy, as the JAX engine routes it to the XLA
+    decoder.  The JAX engine also required the body to fit K2's comp
+    capacity (``len(body) <= 4 * RAW_C_WORDS``); the port's K2 takes
     ragged input of any length, so that condition is gone, and the verdict
-    cannot change, since both decoders are exact.  K4 keeps 64-bit
+    cannot change, since both decoders are exact.  K4 and K5 keep 64-bit
     cursors, so the JAX engine's int32 guard (declared and body below
-    2^31 - 2^21) and the XLA decoder behind it are gone too: every
-    declared length up to MAX_UNCOMPRESSED_LEN takes K4."""
+    2^31 - 2^21) is gone too."""
     dev = config.resolve_device(device)
     declared, read, reason = _declared(data, max_size)
     if declared is None:
@@ -166,13 +171,10 @@ def raw_uncompress(
     if declared <= _BIG:
         ok, out = _decode_segments([body], [np.array([0, len(body)])], [declared], _BIG, dev)
         return (out[0, :declared].tobytes(), "ok") if ok[0] else (None, "invalid")
-    comp = torch.empty(len(body), dtype=torch.uint8)
-    comp.numpy()[:] = np.frombuffer(body, dtype=np.uint8)
-    out = torch.empty(declared, dtype=torch.uint8, device=dev)
-    status = decode_stream.decode_stream(comp.to(dev), declared, out)
-    if not int(status[0]):
-        return None, "invalid"
-    return out.cpu().numpy().tobytes(), "ok"
+    out, reason = decode_stream.decode_raw_stream_bytes(body, declared, device=dev)
+    if reason == "unsupported":
+        out, reason = decode_stream.decode_raw_stream_bytes(body, declared, mode="grid", device=dev)
+    return (out, "ok") if reason == "ok" else (None, "invalid")
 
 
 def raw_uncompress_batch(
@@ -257,15 +259,17 @@ def raw_uncompress_batch(
 
 
 def framed_compress(
-    data: bytes, level: int = 1, device: config.DeviceLike = None
+    data: bytes, with_header: bool = True, level: int = 1, device: config.DeviceLike = None
 ) -> bytes:
     """Framed-format compress (snappy.nim:130-155, encoder.nim:385-426):
     per 64 KiB frame, masked CRC + compressed payload if it saves >= 1/8 of
-    the frame, else the verbatim payload."""
+    the frame, else the verbatim payload.  ``with_header=False`` leaves out
+    the stream identifier (the stream adapters write it once)."""
     dev = config.resolve_device(device)
+    head = [C.FRAMING_HEADER] if with_header else []
     if not data:
-        return C.FRAMING_HEADER
-    parts: List[bytes] = [C.FRAMING_HEADER]
+        return b"".join(head)
+    parts: List[bytes] = head
     arr = np.frombuffer(data, dtype=np.uint8)
     frames, flens = _split_blocks(arr, dev)
     crcs = crc32c.masked_crc32c_chunks(frames, flens)
@@ -424,6 +428,20 @@ def framed_uncompress_chunks(
     if written is None:
         return None, reason
     return [out_arr[:written].tobytes()], "ok"
+
+
+def framed_uncompress_chunks_into(
+    data: bytes,
+    chunks: List[framing.ChunkInfo],
+    out_arr: np.ndarray,
+    check_integrity: bool = True,
+    device: config.DeviceLike = None,
+) -> Tuple[Optional[int], str]:
+    """Decode scanned chunks straight into ``out_arr`` (uint8, room for
+    every chunk's output) at their final offsets.  Returns (written, "ok")
+    or (None, reason)."""
+    dev = config.resolve_device(device)
+    return _framed_uncompress_device(data, chunks, check_integrity, out_arr, dev)
 
 
 def framed_uncompress(

@@ -1,8 +1,8 @@
 """Frame header packing/parsing and stream scanners.
 
-JAX counterpart: snappy_tpu/formats/framing.py.  A copy, except that
-``scan_frames`` keeps only the Python walk: the JAX package's native C
-header pass belongs to the host runtime, which this package does not have.
+JAX counterpart: snappy_tpu/formats/framing.py.  A copy, except that a
+failed build of the native header pass behind ``scan_frames`` raises
+instead of falling back to the Python walk.
 
 Spec parity with nim-snappy snappy/codec.nim:129-214 (``uncompressedLen``,
 ``decodeFrameHeader``, ``isSnappyFramedStream``, ``uncompressedLenFramed``).
@@ -17,6 +17,11 @@ from typing import List, Optional, Tuple
 
 from . import constants as C
 from . import varint
+
+# Streams at least this long scan chunk headers through the native C pass
+# (below it the Python walk's fixed overhead wins and keeps the Python
+# path exercised).
+_NATIVE_SCAN_MIN = 1 << 20
 
 
 def uncompressed_len(data) -> Optional[int]:
@@ -76,6 +81,16 @@ def scan_frames(data, start: int = 0) -> Optional[List[ChunkInfo]]:
     the chunk table used by the framed decoder.
     """
     n = len(data)
+    if n - start >= _NATIVE_SCAN_MIN:
+        from ..ops import host_codec
+
+        rec = host_codec.scan_frames_records(data, start)
+        if rec is None:
+            return None
+        return [
+            ChunkInfo(int(cid), int(hp), int(hp) + 4, int(dl), int(u))
+            for cid, hp, dl, u in rec.tolist()
+        ]
     read = start
     chunks: List[ChunkInfo] = []
     while n - read > 0:

@@ -31,7 +31,10 @@ from typing import Dict, List, Sequence
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("crc32c.cu", "decode_chunks.cu", "decode_stream.cu", "encode_blocks.cu")
+SOURCES = (
+    "crc32c.cu", "crc32c_mma.cu", "decode_chunks.cu", "decode_stream.cu",
+    "decode_stream_scan.cu", "encode_blocks.cu",
+)
 HEADERS = ("snappy_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snappy_tpu_torch"
 
@@ -43,8 +46,10 @@ _I64 = ctypes.c_int64
 # The twin takes the same arguments without the trailing stream.
 _ENTRY_POINTS: Dict[str, List] = {
     "crc32c_chunks": [_P, _I64, _P, _I, _P, _P, _P, _P],
+    "crc32c_mma": [_P, _P, _I, _P, _P, _P],
     "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "decode_stream": [_P, _I64, _I64, _P, _P, _P],
+    "decode_stream_scan": [_P, _I64, _I64, _P, _P, _P, _I64, _P],
     "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _I, _P],
 }
 

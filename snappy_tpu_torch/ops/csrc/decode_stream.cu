@@ -24,10 +24,8 @@
 // walks the tags, every lane parsing the same tag from the compressed
 // bytes in global memory (one broadcast load per byte), and stops when the
 // window is full.  Each literal or copy is emitted by the 32 lanes
-// together, lane k writing bytes k, k + 32, ...: a copy's byte j comes
-// from output byte o - offset + (j mod offset), which was written before
-// the copy began, so no lane waits on another, and a __syncwarp after each
-// segment makes it visible to the next.  A literal or copy that crosses
+// together (lanes_literal and lanes_copy of snappy_common.cuh, which K5
+// shares).  A literal or copy that crosses
 // the window's end is kept as a pending segment (its remaining length and
 // its source) and resumed in the next window.  Then the whole CTA flushes
 // the window to global memory with 16-byte stores.  A copy whose source
@@ -61,12 +59,6 @@ struct StreamState {
 
 STPU_HD uint64_t min_u64(uint64_t a, uint64_t b) { return a < b ? a : b; }
 
-#ifdef __CUDA_ARCH__
-#define STPU_SYNCWARP() __syncwarp()
-#else
-#define STPU_SYNCWARP()
-#endif
-
 // Decode in[0, n) (declared length m) into the ring until the window that
 // starts at shared->win_start is full or the walk ends.  Output position p
 // lives at ring[p & kRingMask]; positions before the window start are also
@@ -91,27 +83,14 @@ STPU_HD int stream_window(const uint8_t* in, int64_t n, uint64_t m,
     if (st->plen) {  // emit (the rest of) the pending segment
       const uint64_t take = min_u64(st->plen, win_end - o);
       if (st->plit) {
-        const uint8_t* src = in + st->psrc;
-        for (uint64_t k = lane; k < take; k += lanes) ring[(o + k) & kRingMask] = src[k];
+        lanes_literal(ring, kRingMask, o, in + st->psrc, take, lane, lanes);
         st->psrc += take;
-      } else if (st->psrc <= o - ring_lo) {
-        // source in the ring; byte k of a self-overlapping copy repeats
-        // the first `offset` bytes of its source
-        const uint64_t s = o - st->psrc;
-        if (st->psrc >= take) {
-          for (uint64_t k = lane; k < take; k += lanes)
-            ring[(o + k) & kRingMask] = ring[(s + k) & kRingMask];
-        } else {
-          const uint32_t off = (uint32_t)st->psrc;
-          for (uint32_t k = lane; k < take; k += lanes)
-            ring[(o + k) & kRingMask] = ring[(s + k % off) & kRingMask];
-        }
+      } else if (st->psrc <= o - ring_lo) {  // source in the ring
+        lanes_copy(ring, kRingMask, o, st->psrc, take, lane, lanes);
       } else {
         // source before the ring: flushed output (never self-overlapping)
-        const uint8_t* src = flushed + (o - st->psrc);
-        for (uint64_t k = lane; k < take; k += lanes) ring[(o + k) & kRingMask] = src[k];
+        lanes_literal(ring, kRingMask, o, flushed + (o - st->psrc), take, lane, lanes);
       }
-      STPU_SYNCWARP();  // the segment is visible to every lane
       o += take;
       st->plen -= take;
     }
@@ -121,50 +100,18 @@ STPU_HD int stream_window(const uint8_t* in, int64_t n, uint64_t m,
     }
     if (i >= n) break;
     // parse and validate one tag (decode_tags_body's rules, 64-bit cursors)
-    const uint32_t b = in[i];
-    const uint32_t tag = b & 3;
-    if (tag == 0) {  // literal
-      const uint32_t lc = b >> 2;
-      int64_t hdr = 1;
-      uint64_t len = lc + 1;
-      if (lc >= 60) {
-        const uint32_t extra = lc - 59;  // 1..4 length bytes
-        if (extra > n - i - 1) { st->bad = 1; break; }
-        uint32_t v = 0;
-        for (uint32_t k = 0; k < extra; ++k) v |= (uint32_t)in[i + 1 + k] << (8 * k);
-        hdr = 1 + extra;
-        len = (uint64_t)v + 1;
-      }
-      if (len > (uint64_t)(n - i - hdr) || len > m - o) { st->bad = 1; break; }
-      st->plit = 1;
-      st->psrc = (uint64_t)(i + hdr);
-      st->plen = len;
-      i += hdr + (int64_t)len;
-      continue;
-    }
-    uint64_t len, offset;
-    int64_t hdr;
-    if (tag == 1) {
-      hdr = 2;
-      if (hdr > n - i) { st->bad = 1; break; }
-      len = 4 + ((b >> 2) & 7);
-      offset = ((b & 0xE0) << 3) | in[i + 1];
-    } else if (tag == 2) {
-      hdr = 3;
-      if (hdr > n - i) { st->bad = 1; break; }
-      len = 1 + (b >> 2);
-      offset = (uint32_t)in[i + 1] | ((uint32_t)in[i + 2] << 8);
+    const Tag t = parse_tag(in + i, n - i);
+    if (t.hdr > n - i) { st->bad = 1; break; }
+    if (t.kind == 0) {
+      if (t.len > (uint64_t)(n - i - t.hdr) || t.len > m - o) { st->bad = 1; break; }
+      st->psrc = (uint64_t)(i + t.hdr);
     } else {
-      hdr = 5;
-      if (hdr > n - i) { st->bad = 1; break; }
-      len = 1 + (b >> 2);
-      offset = load_le32(in + i + 1);
+      if (t.offset == 0 || t.offset > o || t.len > m - o) { st->bad = 1; break; }
+      st->psrc = t.offset;
     }
-    if (offset == 0 || offset > o || len > m - o) { st->bad = 1; break; }
-    st->plit = 0;
-    st->psrc = offset;
-    st->plen = len;
-    i += hdr;
+    st->plit = t.kind == 0;
+    st->plen = t.len;
+    i += t.hdr + (t.kind == 0 ? (int64_t)t.len : 0);
   }
   st->i = i;
   st->o = o;

@@ -1,7 +1,9 @@
-// Shared helpers of the codec kernels: byte-wise loads, the match hash and
-// the tag emitters, all __host__ __device__.
+// Shared helpers of the codec kernels: byte-wise loads, the match hash, the
+// tag emitters, the tag parser and the lane-strided segment emitters of the
+// streaming decoders, all __host__ __device__.
 //
-// The per-chunk bodies in crc32c.cu, decode_chunks.cu and encode_blocks.cu
+// The per-chunk bodies in crc32c.cu, decode_chunks.cu, decode_stream.cu,
+// decode_stream_scan.cu and encode_blocks.cu
 // are written against these helpers so that one source compiles twice:
 // with nvcc for sm_90a (the kernels the port launches) and with g++ into the
 // CPU twin the tests load (no __CUDACC__: the shim below turns the CUDA
@@ -25,6 +27,12 @@
 #endif
 
 #define STPU_EXPORT extern "C" __attribute__((visibility("default")))
+
+#ifdef __CUDA_ARCH__
+#define STPU_SYNCWARP() __syncwarp()
+#else
+#define STPU_SYNCWARP()
+#endif
 
 namespace stpu {
 
@@ -101,6 +109,76 @@ STPU_HD uint32_t emit_copy(uint8_t* out, uint32_t op, uint32_t offset,
   out[op] = (uint8_t)(((offset >> 8) << 5) | (((len - 4) & 7) << 2) | 1);
   out[op + 1] = (uint8_t)(offset & 0xFF);
   return op + 2;
+}
+
+// One parsed tag (decoder.nim:48-113): kind 0 is a literal, 1-3 a copy
+// with a 1-, 2- or 4-byte offset; hdr is the tag's own length, len the
+// bytes it emits.
+struct Tag {
+  uint32_t kind;
+  uint32_t hdr;
+  uint64_t len;
+  uint64_t offset;
+};
+
+// Byte k of p, of which `avail` bytes exist; zero past them.
+STPU_HD uint32_t byte_or_zero(const uint8_t* p, int64_t avail, int64_t k) {
+  return k < avail ? p[k] : 0;
+}
+
+// Parse the tag at p, of which `avail` bytes exist; bytes past them read as
+// zero, so the caller checks hdr <= avail before trusting len or offset.
+STPU_HD Tag parse_tag(const uint8_t* p, int64_t avail) {
+  const uint32_t b = p[0];
+  Tag t;
+  t.kind = b & 3;
+  t.offset = 0;
+  if (t.kind == 0) {
+    const uint32_t lc = b >> 2;
+    t.hdr = 1;
+    t.len = lc + 1;
+    if (lc >= 60) {
+      const uint32_t extra = lc - 59;  // 1..4 length bytes
+      uint64_t v = 0;
+      for (uint32_t k = 0; k < extra; ++k) v |= (uint64_t)byte_or_zero(p, avail, 1 + k) << (8 * k);
+      t.hdr = 1 + extra;
+      t.len = v + 1;
+    }
+  } else if (t.kind == 1) {
+    t.hdr = 2;
+    t.len = 4 + ((b >> 2) & 7);
+    t.offset = ((b & 0xE0) << 3) | byte_or_zero(p, avail, 1);
+  } else {
+    t.hdr = t.kind == 2 ? 3 : 5;
+    t.len = 1 + (b >> 2);
+    for (uint32_t k = 1; k < t.hdr; ++k) t.offset |= (uint64_t)byte_or_zero(p, avail, k) << (8 * (k - 1));
+  }
+  return t;
+}
+
+// The lane-strided segment emitters of the streaming decoders.  Output
+// position x lives at buf[x & mask] (a ring of windows, or mask = ~0 for
+// a flat output); `lanes` threads run them together, this one being
+// `lane`, and write bytes k = lane, lane + lanes, ... of the segment.  A
+// copy's byte k is output byte o - off + (k mod off), written before the
+// copy began, so no lane waits on another; the __syncwarp at the end makes
+// the segment visible to every lane.
+STPU_HD void lanes_literal(uint8_t* buf, uint64_t mask, uint64_t o, const uint8_t* src,
+                           uint64_t take, uint32_t lane, uint32_t lanes) {
+  for (uint64_t k = lane; k < take; k += lanes) buf[(o + k) & mask] = src[k];
+  STPU_SYNCWARP();
+}
+
+STPU_HD void lanes_copy(uint8_t* buf, uint64_t mask, uint64_t o, uint64_t off,
+                        uint64_t take, uint32_t lane, uint32_t lanes) {
+  const uint64_t s = o - off;
+  if (off >= take) {
+    for (uint64_t k = lane; k < take; k += lanes) buf[(o + k) & mask] = buf[(s + k) & mask];
+  } else {  // self-overlapping: the first `off` bytes repeat
+    const uint32_t period = (uint32_t)off;
+    for (uint32_t k = lane; k < take; k += lanes) buf[(o + k) & mask] = buf[(s + k % period) & mask];
+  }
+  STPU_SYNCWARP();
 }
 
 }  // namespace stpu

@@ -1,15 +1,16 @@
-"""The native host runtime: for now, the raw tag-stream block scan.
+"""The native host runtime: the raw tag-stream block scan and the framed
+header scan.
 
-JAX counterpart: snappy_tpu/ops/host_codec.py (its build and
+JAX counterpart: snappy_tpu/ops/host_codec.py (its build,
 ``scan_raw_blocks`` with the parallel ``_scan_blocks``,
-host_codec.py:352-434).  The C sources in ``native/`` are byte-identical
+host_codec.py:352-434, and ``scan_frames_records``, host_codec.py:821).  The C sources in ``native/`` are byte-identical
 copies of ``snappy_tpu/ops/native/*.c`` (a test pins them).
 
 ``cc -O3 -fPIC`` compiles them and ``cc -shared`` links them at first
 use, into ``build/snappy_tpu_torch/`` through ``_build._build``
 (hash-named, under the kernels' file lock); ctypes loads the result.  Unlike the JAX
-module, a failed build raises: the batch decoder needs the scan, and no
-caller reroutes around it.  ctypes calls release the GIL, so the parallel
+module, a failed build raises: the batch decoder and the frame scan need
+the library, and no caller reroutes around it.  ctypes calls release the GIL, so the parallel
 scan's spans run on host threads.
 """
 
@@ -20,7 +21,7 @@ import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -47,6 +48,8 @@ _ARGS = {
         _P, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_long, _P, _P, _P,
         _P, _P, _P, _P, _P, _P, ctypes.c_long,
     ]),
+    "stpu_scan_frames": (ctypes.c_long, [_P, ctypes.c_size_t, ctypes.c_size_t, _P, ctypes.c_size_t]),
+    "stpu_framed_count": (ctypes.c_long, [_P, ctypes.c_size_t, ctypes.c_size_t]),
 }
 
 
@@ -127,3 +130,33 @@ def scan_raw_blocks(body: bytes, declared: int) -> Optional[np.ndarray]:
     if nseg < 1:
         return None
     return in_offs[: nseg + 1]
+
+
+def scan_frames_prefix(data, start: int = 0) -> Tuple[np.ndarray, bool]:
+    """The framed-header scan (stpu_scan_frames) in one C pass: int64
+    [n, 4] records (id, header_pos, data_len, uncompressed_len) of the
+    longest run of whole, valid chunks from ``start`` on (the rules of
+    ``formats.framing.scan_frames``), and whether that run reaches the end
+    of the stream.  Where it does not, the chunk after the last record is
+    the first malformed one: the C scan writes each record before it reads
+    the next header, so the records written before it failed are the
+    run."""
+    buf = data if isinstance(data, np.ndarray) else np.frombuffer(data, dtype=np.uint8)
+    n = len(buf)
+    dll = lib()
+    # The scan records at most the chunks whose payload fits, which
+    # stpu_framed_count counts, and stops at the next one.
+    cap = dll.stpu_framed_count(buf.ctypes.data, n, start) + 1
+    rec = np.empty((cap, 4), dtype=np.int64)
+    rec[:, 0] = -1
+    r = dll.stpu_scan_frames(buf.ctypes.data, n, start, rec.ctypes.data, cap)
+    if r >= 0:
+        return rec[:r], True
+    return rec[: int(np.argmax(rec[:, 0] < 0))], False
+
+
+def scan_frames_records(data, start: int = 0) -> Optional[np.ndarray]:
+    """The records of ``scan_frames_prefix`` when every chunk from
+    ``start`` on is valid, else None."""
+    rec, whole = scan_frames_prefix(data, start)
+    return rec if whole else None

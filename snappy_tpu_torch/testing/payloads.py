@@ -20,10 +20,14 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
 * ``serving_batch`` — the raw batch decoder's input: one-block streams,
   unsplittable streams of 70-128 KiB, one large stream and malformed ones.
 * ``big_window_cases`` and ``stream_cases`` — tag streams for the chunk
-  decoder's big-window shape and for the streaming decoder, the ROADMAP's
-  watch list included (segments across window edges, far copies).
+  decoder's big-window shape and for the streaming decoders, the ROADMAP's
+  watch list included (segments across window edges, far copies);
+  ``scan_edge_cases`` adds the history limit of the scan-mode decoder.
 * ``smoke_blocks`` — 8 blocks, one of each kind and size the kernels must
   handle, for comparing each kernel with its plain version.
+* ``framed_vectors`` — framed streams for ``uncompress_framed_into`` with
+  a budget and the pinned result: the resume point, the walk's error
+  order and the CRC checked before the fit.
 * ``MALFORMED_RAW`` — a copy of ``tests/test_oracle.MALFORMED_RAW`` (a test
   pins the copy equal to the original), and ``malformed_chunks`` made from
   it for the chunk decoder.
@@ -35,6 +39,8 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..engine import masked_crc32c
+from ..formats import constants as C
 from ..formats import varint
 from ..ops.encode_blocks import encode_block
 
@@ -381,3 +387,98 @@ def stream_cases(seed: int = 41) -> List[Tuple[bytes, int, Optional[bytes]]]:
     out.append((base + b"\x00", len(text), None))
     out.append((base + copy2(1, 4), len(text), None))
     return out
+
+
+def scan_edge_cases(seed: int = 43) -> List[Tuple[bytes, int, bytes]]:
+    """(tag stream, declared, payload) triples at the scan-mode decoder's
+    history limit: copies reaching exactly 64 KiB behind their window's
+    start (served) and one byte further (``unsupported`` in scan mode), at
+    a window start, inside a window and split by a window's end.  Every
+    stream is valid."""
+    head = Rand(seed).bytes(140_000).tobytes()
+    out = []
+    # (output before the copy, the farthest offset in reach): at the start
+    # of window 2, 100 bytes into it, and 4 bytes before its end, where the
+    # copy splits and its rest resumes at the next window's start
+    for lead, reach in ((131_072, FRAME), (131_172, FRAME + 100), (131_068, FRAME)):
+        for off in (reach, reach + 1):
+            p = bytearray(head[:lead])
+            for _ in range(8):
+                p.append(p[-off])
+            out.append((literal(head[:lead]) + copy4(off, 8), len(p), bytes(p)))
+    return out
+
+
+def frame(cid: int, payload: bytes) -> bytes:
+    """One chunk: id, 3-byte length, payload."""
+    return bytes([cid]) + len(payload).to_bytes(3, "little") + payload
+
+
+def data_chunk(data: bytes, compressed: bool, bad_crc: bool = False) -> bytes:
+    """A compressed (level-1 block encoding) or uncompressed chunk of
+    ``data`` with its masked CRC, or a wrong one."""
+    crc = masked_crc32c(data, device="cpu") ^ (0xFF if bad_crc else 0)
+    if compressed:
+        body = varint.encode_uint32(len(data)) + encode_block(data)
+        return frame(C.CHUNK_COMPRESSED, crc.to_bytes(4, "little") + body)
+    return frame(C.CHUNK_UNCOMPRESSED, crc.to_bytes(4, "little") + data)
+
+
+def framed_vectors(seed: int = 47):
+    """(name, stream, budget, check_integrity, expected) for
+    ``uncompress_framed_into(stream, bytearray(budget), True,
+    check_integrity)``: expected is ("ok", read, written) or ("err",
+    FrameError name).  The cases of tests/test_framed.py's resume and
+    error-order classes, rebuilt from the port's own encoder and CRC."""
+    rng = Rand(seed)
+    H = C.FRAMING_HEADER
+    rnd = rng.bytes(140_000).tobytes()
+    three = [data_chunk(rnd[k : k + FRAME], False) for k in range(0, len(rnd), FRAME)]
+    s3 = H + b"".join(three)
+    c0, c1 = len(H), len(H) + len(three[0])  # header offsets of chunks 0 and 1
+    c2 = c1 + len(three[1])
+    bad_id = bytearray(s3)
+    bad_id[c2] = 0x40
+    bad_first = bytearray(s3)
+    bad_first[c0] = 0x40
+    text = mixed_payload(150_000, seed)
+    mixed = H + data_chunk(text[:FRAME], True) + frame(0x80, b"skip me") + data_chunk(
+        text[FRAME : 2 * FRAME], False) + frame(0xFE, b"\0" * 9) + data_chunk(text[2 * FRAME :], True)
+    small = rng.bytes(1000).tobytes()
+    bad_small = H + data_chunk(small, False, bad_crc=True)
+    bad_body = frame(C.CHUNK_COMPRESSED, b"\0\0\0\0" + b"\x05\xff\xff")  # truncated literal
+    bad_crc0 = data_chunk(b"first chunk payload", False, bad_crc=True)
+    overlong = frame(C.CHUNK_COMPRESSED, b"\0" * 4 + b"\xe4\x80\x80\x80\x80\x00" + b"\0" * 4)
+    torn_varint = H + frame(C.CHUNK_COMPRESSED, b"\0" * 4 + b"\x80") + data_chunk(b"next chunk", False)
+    big = rng.bytes(FRAME + 1).tobytes()
+    return [
+        ("three_frames_resume", s3, FRAME, True, ("ok", c1, FRAME)),
+        ("three_frames_all", s3, 3 * FRAME, True, ("ok", len(s3), len(rnd))),
+        ("truncated_tail_past_resume", s3[: c2 + 6], FRAME, True, ("ok", c1, FRAME)),
+        ("unknown_id_past_resume", bytes(bad_id), FRAME, True, ("ok", c1, FRAME)),
+        ("truncated_at_resume", s3[: c1 + 6], FRAME, True, ("err", "invalid_input")),
+        ("unknown_id_within_budget", bytes(bad_first), FRAME, True, ("err", "unknown_chunk")),
+        ("nonfitting_bad_crc", bad_small, 10, True, ("err", "crc_mismatch")),
+        ("nonfitting_bad_crc_unchecked", bad_small, 10, False, ("ok", len(H), 0)),
+        ("bad_body_beats_later_bad_crc", H + bad_body + data_chunk(b"tail data", False, True),
+         FRAME, True, ("err", "invalid_input")),
+        ("bad_crc_beats_later_unknown", H + bad_crc0 + frame(0x40, b""), FRAME, True,
+         ("err", "crc_mismatch")),
+        ("unknown_after_unchecked_crc", H + bad_crc0 + frame(0x40, b""), FRAME, False,
+         ("err", "unknown_chunk")),
+        ("bad_crc_beats_later_torn_header", H + bad_crc0 + b"\x00\x08", FRAME, True,
+         ("err", "crc_mismatch")),
+        ("overlong_varint_on_resume_path", H + overlong, 10, True, ("err", "invalid_input")),
+        ("torn_varint_small_budget", torn_varint, 16, True, ("err", "invalid_input")),
+        ("torn_varint_large_budget", torn_varint, FRAME, True, ("err", "invalid_input")),
+        ("skippable_and_padding", mixed, len(text), True, ("ok", len(mixed), len(text))),
+        ("skippable_and_padding_resume", mixed, FRAME + 100, True,
+         ("ok", len(H) + len(data_chunk(text[:FRAME], True)) + 11, FRAME)),
+        ("oversized_uncompressed", H + data_chunk(big, False), 2 * FRAME, True,
+         ("err", "invalid_input")),
+        ("compressed_too_short", H + frame(C.CHUNK_COMPRESSED, b"\0\0\0"), FRAME, True,
+         ("err", "invalid_input")),
+        ("bad_magic", b"sNaPpY!!!!" + s3[len(H) :], FRAME, True, ("err", "invalid_input")),
+        ("empty", b"", FRAME, True, ("err", "invalid_input")),
+        ("header_only", H, FRAME, True, ("ok", len(H), 0)),
+    ]

@@ -1,0 +1,130 @@
+"""Time the port's framed decode paths on one CUDA card, stage by stage.
+
+    python snappy_tpu_torch/testing/profile_paths.py [--tree DIR] [--reps N]
+
+On the seeded 48 MiB payload's level-1 framed stream: ``decode_framed``
+end to end (best and median of ``reps`` after a warm-up), its host stages
+(the frame scan, the device decode into the output array, ``tobytes``)
+and the device time of one call by ``torch.profiler``; then, where the
+package has them, ``streams.sync.uncompress_framed`` and
+``uncompress_framed_into`` through 8 MiB buffers with re-entry, the latter
+with cProfile's top host functions.  ``--tree`` imports
+``snappy_tpu_torch`` from another checkout (an older commit, for a
+comparison within one run).  Every line names the card and its power
+limit.  Needs CUDA; exits nonzero without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import io
+import pstats
+import statistics
+import subprocess
+import sys
+import time
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--tree", default=None, help="checkout to import snappy_tpu_torch from")
+    p.add_argument("--reps", type=int, default=5)
+    args = p.parse_args()
+    if args.tree:
+        sys.path.insert(0, args.tree)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_paths: torch.cuda is not available")
+    import snappy_tpu_torch
+    from snappy_tpu_torch import api, engine
+    from snappy_tpu_torch.formats import constants as C
+    from snappy_tpu_torch.formats import framing
+    from snappy_tpu_torch.testing import payloads
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    tree = args.tree or "."
+    tag = f"[{tree}; {card}]"
+    print(f"profile_paths: snappy_tpu_torch from {snappy_tpu_torch.__file__} {tag}")
+    dev = torch.device("cuda:0")
+    payload = payloads.mixed_payload()
+    stream = api.encode_framed(payload, device=dev)
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(args.reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return min(times), statistics.median(times)
+
+    best, med = timed(lambda: api.decode_framed(stream, device=dev))
+    print(f"decode_framed: best {best:.2f} ms, median {med:.2f} ms {tag}")
+
+    start = len(C.FRAMING_HEADER)
+    stages = {"scan": [], "device decode": [], "tobytes": []}
+    for _ in range(args.reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = framing.scan_frames(stream, start)
+        t1 = time.perf_counter()
+        out_arr = np.empty(sum(c.uncompressed_len for c in chunks), dtype=np.uint8)
+        written, _ = engine._framed_uncompress_device(stream, chunks, True, out_arr, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out_arr[:written].tobytes()
+        t3 = time.perf_counter()
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[k].append(v * 1e3)
+    print("decode_framed stages (median ms): " + ", ".join(
+        f"{k} {statistics.median(v):.2f}" for k, v in stages.items()) + f" {tag}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        api.decode_framed(stream, device=dev)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"decode_framed device time: {total:.2f} ms; " + ", ".join(
+        f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in rows[:5]) + f" {tag}")
+
+    if not hasattr(api, "uncompress_framed_into"):
+        return
+    from snappy_tpu_torch.streams import sync
+
+    best, med = timed(lambda: sync.uncompress_framed(io.BytesIO(stream), io.BytesIO(), device=dev))
+    print(f"sync uncompress_framed: best {best:.2f} ms, median {med:.2f} ms {tag}")
+
+    def resume_into(size=8 << 20):
+        data, first = stream, True
+        while data:
+            res = api.uncompress_framed_into(data, bytearray(size), first, device=dev)
+            read, _ = res.value
+            data, first = data[read:], False
+
+    best, med = timed(resume_into)
+    print(f"uncompress_framed_into 8 MiB: best {best:.2f} ms, median {med:.2f} ms {tag}")
+    prof_h = cProfile.Profile()
+    prof_h.enable()
+    resume_into()
+    torch.cuda.synchronize()
+    prof_h.disable()
+    text = io.StringIO()
+    pstats.Stats(prof_h, stream=text).sort_stats("tottime").print_stats(12)
+    print("uncompress_framed_into 8 MiB, cProfile by own time:")
+    for line in text.getvalue().splitlines():
+        if line.strip() and ("{" in line or ".py" in line):
+            print("  " + line.strip())
+
+
+if __name__ == "__main__":
+    main()
