@@ -18,15 +18,21 @@ Phases, each reported on its own lines:
               the streaming decoders (grid mode K4, scan mode K5) on
               payloads.stream_cases and scan_edge_cases (segments across
               window edges, far copies, the scan's 64 KiB history limit,
-              mutants; K5's verdicts include `unsupported`); the GF(2) CRC
-              (K6) on the 8 blocks; equal, or it fails;
+              mutants; K5's verdicts include `unsupported`); K4 also on
+              payloads.window_cases, each case on the route that
+              decode_raw_stream_bytes takes (the window route where the
+              host index builds, with copies reaching earlier windows
+              decoded again by its ordered pass, else the whole-stream
+              walk); the GF(2) CRC (K6) on the 8 blocks; equal, or it
+              fails;
 4. framed   — encode_framed / decode_framed of the seeded 48 MiB mixed
               payload: the stream's SHA-256 equals the digest pinned from
               the JAX package and decodes back to the payload; then the
               error-order cases and check_integrity=False;
 5. raw      — encode of the payload at levels 1 and 2 (SHA-256 equal to the
               pinned JAX digests), decode of the level-1 stream (the
-              streaming decoder), encode_batch against per-payload encode,
+              streaming decoder's window route, no window decoded twice),
+              encode_batch against per-payload encode,
               decode_batch of the seeded serving batch against the plain
               versions, compress_into / uncompress_into, and
               encode_framed(level=2) against its digest;
@@ -37,14 +43,17 @@ Phases, each reported on its own lines:
               re-entry, and payloads.framed_vectors against their pinned
               results; cli.main in a temporary directory: framed L1 and
               L2 round trips, then `-d --raw` with SNAPPY_TPU_STREAM_MODE=scan
-              set for the call (K5), and a far-copy stream (K5, then K4);
+              set for the call (K5), and a far-copy stream (K5, then the
+              whole-stream walk of K4: one literal over the boundaries);
 7. fused CRC — crc32c_mma.masked_crc32c_chunks_fused over the 769 frames
               of the payload, equal to K1's CRCs of the same frames;
 8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
               counts set to 0 just before each path and read just after;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
-              end-to-end rates.
+              end-to-end rates; for K4 also the host index, each pass of
+              the window route alone and one whole-stream walk of the
+              48 MiB stream.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -208,6 +217,10 @@ def main() -> None:
         crc32c.LAUNCHES = decode_chunks.LAUNCHES = decode_chunks.LAUNCHES_BIG = 0
         encode_blocks.LAUNCHES = encode_blocks.LAUNCHES_L2 = decode_stream.LAUNCHES = 0
         decode_stream.LAUNCHES_SCAN = crc32c_mma.LAUNCHES = 0
+        decode_stream.LAUNCHES_WINDOWS = decode_stream.LAUNCHES_WALK = decode_stream.REDECODED = 0
+
+    def routes():
+        return (decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK, decode_stream.REDECODED)
 
     dev = torch.device("cuda:0")
     card = card_label()
@@ -289,12 +302,24 @@ def main() -> None:
     assert bool(ok[:3].all()) and not bool(ok[3]), "big-window verdicts"
 
     st_cases = payloads.stream_cases()
-    st_dev = []  # (comp on the card, declared, out on the card) per case
+    win_cases = payloads.window_cases()
+    st_dev = []  # (comp, declared, out, in_offs or None) on the card, per case
+    st_redecoded = []  # windows pass 2 decoded per case (None: the walk)
     s_err = 0
-    for body, m, payload in st_cases:
+    for body, m, payload in st_cases + win_cases:
         comp_d = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()).to(dev)
         out_d = torch.zeros(max(m, 1), dtype=torch.uint8, device=dev)
-        status = decode_stream.decode_stream(comp_d, m, out_d).cpu().tolist()
+        offs = decode_stream.window_index(body, m) if m > 0 else None
+        offs_d = None if offs is None else offs.to(dev)
+        status4 = torch.empty(4, dtype=torch.int64, device=dev)
+        before = routes()
+        decode_stream.decode_stream(comp_d, m, out_d, offs_d, status4)
+        status4 = status4.cpu().tolist()
+        walked = routes()[1] - before[1]
+        assert walked == (offs is None) and routes()[0] - before[0] == (offs is not None), \
+            ("decode_stream route", len(body), m, routes(), before)
+        status = status4[:3]
+        st_redecoded.append(None if offs is None else status4[3])
         pout_s = torch.zeros(max(m, 1), dtype=torch.uint8)
         pstatus = decode_stream._decode_stream_plain(torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()), m, pout_s).tolist()
         assert status == pstatus, ("decode_stream status", len(body), m, status, pstatus)
@@ -303,9 +328,15 @@ def main() -> None:
         s_err = max(s_err, int(d.max()) if w else 0)
         if payload is not None:
             assert status == [1, m, len(body)] and out_d[:m].cpu().numpy().tobytes() == payload
-        st_dev.append((comp_d, m, out_d))
+        st_dev.append((comp_d, m, out_d, offs_d))
     err["decode_stream"] = s_err
     assert s_err == 0, "decode_stream bytes differ from the plain version"
+    # window_cases: 3 block-encoded streams, one deferred window, a chain of
+    # three, ten mutants and a literal across a boundary (no index)
+    w_red = st_redecoded[len(st_cases):]
+    assert w_red[:3] == [0, 0, 0] and w_red[3] >= 1 and w_red[4] == 3 and w_red[15] is None, w_red
+    assert all(r is not None for r in w_red[5:15]), w_red
+    n_win = sum(r is not None for r in st_redecoded)
 
     sc_cases = [(b, m) for b, m, _ in st_cases + payloads.scan_edge_cases()]
     sc_dev = []  # (comp on the card, comp on the host, declared, out on the card)
@@ -336,8 +367,10 @@ def main() -> None:
     print(f"kernels: crc32c, crc32c_mma, encode_blocks (levels 1 and 2), decode_chunks equal "
           f"their plain versions on {len(blocks)} blocks and {len(cases) - len(blocks)} "
           f"malformed/truncated streams; decode_chunks at W={BIG} on {len(big_cases)} big-window "
-          f"cases; decode_stream on {len(st_cases)} and decode_stream_scan on {len(sc_cases)} "
-          f"stream cases (verdicts {sorted(verdicts)}) (tolerance: exact)")
+          f"cases; decode_stream on {len(st_dev)} stream and window cases ({n_win} on the window "
+          f"route, {sum(r or 0 for r in st_redecoded)} windows decoded again by its ordered pass, "
+          f"{len(st_dev) - n_win} on the whole-stream walk) and decode_stream_scan on "
+          f"{len(sc_cases)} stream cases (verdicts {sorted(verdicts)}) (tolerance: exact)")
 
     # 4. framed main path ----------------------------------------------------
     payload = payloads.mixed_payload()
@@ -387,7 +420,9 @@ def main() -> None:
     reset_counts()
     raw1 = api.encode(payload, level=1, device=dev)
     raw2 = api.encode(payload, level=2, device=dev)
+    before = routes()
     raw_decoded = api.decode(raw1, device=dev)
+    decode_route = tuple(a - b for a, b in zip(routes(), before))
     serving, expect = payloads.serving_batch(encode_batch_on_card)
     batch_out = api.decode_batch(serving, device=dev)
     one_mb = payload[: 1 << 20]
@@ -406,6 +441,8 @@ def main() -> None:
         assert d == pinned, (name, d)
         print(f"raw: {name} {len(payload)} bytes -> {len(s)} bytes, sha256 {d} equals the pinned JAX digest")
     assert raw_decoded == payload, "decode did not return the payload"
+    assert decode_route == (1, 0, 0), \
+        ("decode of the 48 MiB stream: (window route, walk, windows decoded again)", decode_route)
     assert framed2_back == payload, "decode_framed of the level-2 stream"
     per_payload = [api.encode(p, device=dev) for p in captured["in"]]
     assert captured["out"] == per_payload, "encode_batch differs from per-payload encode"
@@ -415,7 +452,8 @@ def main() -> None:
     assert res_c.is_ok() and bytes(into[: res_c.value]) == api.encode(one_mb, device=dev)
     assert res_u.is_ok() and res_u.value == len(one_mb) and bytes(back) == one_mb
     n_bad = sum(e is None for e in expect)
-    print(f"raw: decode of the level-1 stream returns the payload; encode_batch of "
+    print(f"raw: decode of the level-1 stream returns the payload (window route launches, walk "
+          f"launches, windows decoded again: {decode_route}); encode_batch of "
           f"{len(captured['in'])} payloads equals per-payload encode; decode_batch of "
           f"{len(serving)} streams ({len(serving) - n_bad} valid, {n_bad} malformed, "
           f"{sum(map(len, serving))} bytes) equals the plain versions; compress_into / "
@@ -496,10 +534,12 @@ def main() -> None:
         cli_launches = {}
         with stream_mode("scan"):
             for name in ("raw", "far"):
-                before = (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES)
+                before = (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES_WALK,
+                          decode_stream.LAUNCHES_WINDOWS)
                 assert cli.main(["-d", "--raw", "-o", path(f"{name}.out"), path(f"{name}.rawsz")]) == 0
                 cli_launches[name] = (decode_stream.LAUNCHES_SCAN - before[0],
-                                      decode_stream.LAUNCHES - before[1])
+                                      decode_stream.LAUNCHES_WALK - before[1],
+                                      decode_stream.LAUNCHES_WINDOWS - before[2])
         for name in ("l1.sz", "l1.out", "l2.sz", "l2.out", "raw.out", "far.out"):
             with open(path(name), "rb") as f:
                 cli_out[name] = f.read()
@@ -522,14 +562,14 @@ def main() -> None:
         assert sum(r for r, _ in steps) == len(stream) and len(steps) >= len(payload) // size
     for name, got_v, expected in vectors:
         assert got_v[: len(expected)] == expected, (name, got_v, expected)
-    assert cli_launches["raw"][0] > 0 and cli_launches["raw"][1] == 0, cli_launches
-    assert cli_launches["far"][0] > 0 and cli_launches["far"][1] > 0, cli_launches
+    assert cli_launches["raw"][0] > 0 and cli_launches["raw"][1:] == (0, 0), cli_launches
+    assert cli_launches["far"][0] > 0 and cli_launches["far"][1:] == (1, 0), cli_launches
     print(f"streams: sync and aio compress_framed / compress of the payload equal the pinned "
           f"framed-L1 / raw-L1 digests and uncompress_framed returns the payload; "
           f"uncompress_framed_into re-entered {len(into[1 << 20][0])} times through 1 MiB and "
           f"{len(into[8 << 20][0])} through 8 MiB buffers returns the payload; {len(vectors)} "
           f"framed vectors give their pinned results; cli framed L1 / L2 round trips match the "
-          f"digests; cli -d --raw in scan mode launched (K5, K4) {cli_launches['raw']} times, "
+          f"digests; cli -d --raw in scan mode launched (K5, K4 walk, K4 windows) {cli_launches['raw']} times, "
           f"and on a far-copy stream {cli_launches['far']}")
 
     # 7. the fused CRC --------------------------------------------------------
@@ -546,6 +586,8 @@ def main() -> None:
                      "streams": stream_launches, "fused_crc": fused_launches}
     for name, got_c in path_launches.items():
         print(f"counters: {name} path {got_c}")
+    print(f"counters: decode of the 48 MiB stream (K4 window route, K4 walk, windows decoded "
+          f"again) {decode_route}")
     for name in ("crc32c", "decode_chunks", "encode_blocks"):
         assert framed_launches[name] > 0, f"the framed main path never launched {name}"
     for name in ("encode_blocks_l2", "decode_chunks_big", "decode_stream", "crc32c",
@@ -593,7 +635,16 @@ def main() -> None:
     r_body = payloads.body_of(raw1)
     r_comp = torch.from_numpy(np.frombuffer(r_body, dtype=np.uint8).copy()).to(dev)
     r_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
-    r_status = torch.empty(3, dtype=torch.int64, device=dev)
+    r_status = torch.empty(4, dtype=torch.int64, device=dev)
+    index_ms = host_ms(lambda: decode_stream.window_index(r_body, len(payload)), 3)
+    r_offs = decode_stream.window_index(r_body, len(payload))
+    assert r_offs is not None, "the 48 MiB level-1 stream has no window index"
+    r_nwin = r_offs.shape[0] - 1
+    spans = r_offs.diff()
+    r_offs = r_offs.to(dev)
+    r_rec = torch.empty(3 * r_nwin, dtype=torch.int64, device=dev)
+    r_walk_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
+    r_walk_status = torch.empty(4, dtype=torch.int64, device=dev)
     r_out_scan = torch.empty(len(payload), dtype=torch.uint8, device=dev)
     scan_result = {}
     fused_out = torch.empty(nf, dtype=torch.uint32, device=dev)
@@ -622,21 +673,45 @@ def main() -> None:
     bw_out = torch.empty((len(big_cases), BIG), dtype=torch.uint8, device=dev)
     bw_ok = torch.empty(len(big_cases), dtype=torch.bool, device=dev)
     bw_w = torch.empty(len(big_cases), dtype=torch.int32, device=dev)
-    st_status = torch.empty(3, dtype=torch.int64, device=dev)
+    st_status = torch.empty(4, dtype=torch.int64, device=dev)
     s_comp_h, s_offs_h = s_comp.cpu(), s_offs.cpu()
     s_pout = torch.empty((len(blocks), 65536), dtype=torch.uint8)
-    st_host = [(torch.from_numpy(np.frombuffer(b, dtype=np.uint8).copy()), m) for b, m, _ in st_cases]
+    st_host = [(torch.from_numpy(np.frombuffer(b, dtype=np.uint8).copy()), m)
+               for b, m, _ in st_cases + win_cases]
 
-    def stream_set_kernel():
-        for comp_d, m, out_d in st_dev:
-            decode_stream._launch(comp_d, m, out_d, st_status)
+    def stream_set_kernel():  # each case on its route, as in phase 3
+        for comp_d, m, out_d, offs_d in st_dev:
+            if offs_d is None:
+                decode_stream._launch(comp_d, m, out_d, st_status)
+            else:
+                decode_stream._launch_windows(comp_d, m, out_d, offs_d, st_status)
 
     def stream_set_plain():
         for comp_h, m in st_host:
             decode_stream._decode_stream_plain(comp_h, m, torch.empty(max(m, 1), dtype=torch.uint8))
 
     sb_payload = int(sb_decl.sum())
-    stream_bytes = len(r_body) + len(payload)
+    stream_bytes = len(r_body) + len(payload) + 8 * (r_nwin + 1) + 32
+
+    def windows_main(passes: int = 3):
+        decode_stream._launch_windows(r_comp, len(payload), r_out, r_offs, r_status, r_rec, passes)
+
+    # K4's passes alone, and the whole-stream walk once (the earlier design)
+    windows_main()
+    pass1_ms = event_ms(lambda: windows_main(1), 5)
+    pass2_ms = event_ms(lambda: windows_main(2), 5)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    decode_stream._launch(r_comp, len(payload), r_walk_out, r_walk_status)
+    end.record()
+    torch.cuda.synchronize()
+    walk_ms = start.elapsed_time(end)
+    assert int(r_walk_status[0]) == 1, "the whole-stream walk of the 48 MiB stream"
+    print(f"timing: decode_stream on the {len(r_body)}-byte level-1 stream: host index "
+          f"{index_ms:.3f} ms ({r_nwin} windows of {int(spans.min())} to {int(spans.max())} input "
+          f"bytes, median {int(spans.median())}), pass 1 {pass1_ms:.4f} ms, pass 2 {pass2_ms:.4f} ms, "
+          f"whole-stream walk {walk_ms:.2f} ms (one call) {tag}")
     timing = {
         # name: (main-path shape, its description, bytes out, reps,
         #        kernel on the small set, plain on the small set, small set,
@@ -668,10 +743,11 @@ def main() -> None:
                               lambda: decode_chunks._decode_chunks_plain(bw_comp, bw_offs, bw_decl, bw_pout),
                               f"{len(big_cases)} big-window cases",
                               sb_comp.numel() + 8 * (len(straddle) + 1) + sb_payload + 9 * len(straddle), 0),
-        "decode_stream": (lambda: decode_stream._launch(r_comp, len(payload), r_out, r_status),
-                          f"the {len(r_body)}-byte level-1 stream of the payload", len(payload), 2,
-                          stream_set_kernel, stream_set_plain, f"{len(st_cases)} stream cases",
-                          stream_bytes + 24, 0),
+        "decode_stream": (windows_main,
+                          f"the {len(r_body)}-byte level-1 stream of the payload, {r_nwin} windows "
+                          f"(both passes, the host index made before)", len(payload), 10,
+                          stream_set_kernel, stream_set_plain,
+                          f"{len(st_dev)} stream and window cases", stream_bytes, 0),
         "decode_stream_scan": (scan_main,
                                f"the {len(r_body)}-byte level-1 stream of the payload, "
                                f"{decode_stream.n_steps(len(r_body), len(payload))} steps",
@@ -698,10 +774,14 @@ def main() -> None:
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                      "ms_small": ms_small, "shape": shape, "small_set": small_set})
+        if name == "decode_stream":
+            rows[-1].update({"pass1_ms": pass1_ms, "pass2_ms": pass2_ms, "index_ms": index_ms,
+                             "walk_ms": walk_ms, "walk_over_ms": walk_ms / ms})
     torch.cuda.synchronize()
     payload_t = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
-    assert int(r_status[0]) == 1 and torch.equal(r_out.cpu(), payload_t), \
-        "streaming decode of the 48 MiB stream"
+    assert r_status.tolist() == [1, len(payload), len(r_body), 0] and torch.equal(r_out.cpu(), payload_t), \
+        ("window route decode of the 48 MiB stream", r_status.tolist())
+    assert torch.equal(r_walk_out.cpu(), payload_t), "whole-stream walk of the 48 MiB stream"
     scan_status = decode_stream.scan_status(scan_result["state"].cpu().tolist(), len(r_body), len(payload))
     assert scan_status[0] == 1 and torch.equal(r_out_scan.cpu(), payload_t), \
         ("scan-mode decode of the 48 MiB stream", scan_status)
@@ -721,7 +801,7 @@ def main() -> None:
         ("encode_framed L2", lambda: api.encode_framed(payload, level=2, device=dev), len(payload), 3),
         ("encode L1", lambda: api.encode(payload, device=dev), len(payload), 3),
         ("encode L2", lambda: api.encode(payload, level=2, device=dev), len(payload), 3),
-        ("decode", lambda: api.decode(raw1, device=dev), len(payload), 2),
+        ("decode", lambda: api.decode(raw1, device=dev), len(payload), 3),
         ("decode_batch", lambda: api.decode_batch(serving, device=dev), batch_bytes, 3),
         ("sync compress_framed", lambda: sync.compress_framed(io.BytesIO(payload), io.BytesIO(), device=dev),
          len(payload), 3),

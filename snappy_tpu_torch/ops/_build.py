@@ -49,6 +49,7 @@ _ENTRY_POINTS: Dict[str, List] = {
     "crc32c_mma": [_P, _P, _I, _P, _P, _P],
     "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "decode_stream": [_P, _I64, _I64, _P, _P, _P],
+    "decode_stream_windows": [_P, _I64, _I64, _P, _I64, _P, _P, _P, _I, _P],
     "decode_stream_scan": [_P, _I64, _I64, _P, _P, _P, _I64, _P],
     "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _I, _P],
 }

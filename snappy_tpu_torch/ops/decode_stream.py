@@ -4,11 +4,14 @@ mode (kernel K4) or scan mode (kernel K5).
 JAX counterpart: snappy_tpu/ops/decode_stream.py.
 
 * Grid mode, ``decode_stream``: the TPU kernel ``_kernel_grid``, launched
-  by ``decode_raw_stream_grid``.  The CUDA kernel is
-  ``csrc/decode_stream.cu``: one CTA walks the stream in 64 KiB output
-  windows staged in shared memory, with 64-bit cursors, so any declared
-  length up to ``MAX_UNCOMPRESSED_LEN`` is taken; every legal copy offset
-  is served.  The verdict: ``ok`` = no malformed tag, ``consumed ==
+  by ``decode_raw_stream_grid``.  The CUDA kernels are in
+  ``csrc/decode_stream.cu``, with 64-bit cursors, so any declared length
+  up to ``MAX_UNCOMPRESSED_LEN`` is taken; every legal copy offset is
+  served.  Given ``in_offs``, the input offset of every 64 KiB output
+  boundary (``window_index``: the host's block scan), the window route
+  decodes one window per CTA and then, in one CTA, the windows whose
+  copies reach an earlier window; without it, one CTA walks the whole
+  stream.  The verdict: ``ok`` = no malformed tag, ``consumed ==
   len(body)`` and ``written == declared``; ``written`` is the output
   produced before the first bad tag and ``consumed`` that tag's offset (or
   the body's end), as the sequential decoder reports them.
@@ -33,14 +36,17 @@ import numpy as np
 import torch
 
 from .. import config
-from . import _build
+from . import _build, host_codec
 from .decode_chunks import decode_tags
 
-LAUNCHES = 0  # kernel launches made by decode_stream
+LAUNCHES = 0  # decode_stream calls on the card, either route
+LAUNCHES_WINDOWS = 0  # launches of the window route (pass 1 and pass 2)
+LAUNCHES_WALK = 0  # launches of the whole-stream walk
 LAUNCHES_SCAN = 0  # kernel launches made by decode_stream_scan
+REDECODED = 0  # windows that pass 2 decoded, summed by decode_raw_stream_bytes
 
 SC_BYTES = 76800  # scan mode's comp window (4 * SC_WORDS)
-WIN = 65536  # scan mode's output window (4 * OW_WORDS)
+WIN = 65536  # the output window of scan mode (4 * OW_WORDS) and of K4's window route
 MARGIN = 8
 STATE_WORDS = 16
 # the scan state, int64 [STATE_WORDS] (decode_stream_scan.cu)
@@ -60,32 +66,96 @@ def _check(comp_u8: torch.Tensor, declared: int, out: torch.Tensor) -> None:
         raise ValueError("out must be 16-byte aligned")
 
 
-def decode_stream(comp_u8: torch.Tensor, declared: int, out: torch.Tensor) -> torch.Tensor:
+def window_count(declared: int) -> int:
+    """The windows of the window route: one per 64 KiB of output."""
+    return -(-declared // WIN)
+
+
+def window_index(body, declared: int) -> Optional[torch.Tensor]:
+    """The window route's ``in_offs`` for a raw tag stream: int64 [windows
+    + 1] on the host, the body offset of every 64 KiB output boundary, from
+    the native block scan (``host_codec.scan_raw_blocks``).  None where the
+    scan finds none (a malformed stream, or a literal or copy straddling a
+    boundary) or one too few (an op over the last boundary)."""
+    offs = host_codec.scan_raw_blocks(body, declared)
+    if offs is None or len(offs) != window_count(declared) + 1:
+        return None
+    return torch.from_numpy(offs)
+
+
+def decode_stream(
+    comp_u8: torch.Tensor,
+    declared: int,
+    out: torch.Tensor,
+    in_offs: Optional[torch.Tensor] = None,
+    status: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """Decode the raw tag stream ``comp_u8`` (no varint header) with
     declared length ``declared`` into ``out[:declared]``.
 
-    Returns int64 [3] = (ok, written, consumed) on out's device; the first
-    ``written`` bytes of ``out`` are the output, the rest is left as it
-    was."""
+    ``in_offs`` (int64 [windows + 1] on out's device, ``window_index``)
+    takes the window route, none the whole-stream walk; the result is the
+    same.  Returns int64 [3] = (ok, written, consumed) on out's device, the
+    first three slots of ``status`` (int64 [4], made here unless given),
+    whose slot 3 receives the number of windows that pass 2 decoded (0 on
+    the walk and on the CPU).  The first ``written`` bytes of ``out`` are
+    the output; bytes past them are not kept (windows after a failing one
+    may have been written)."""
     _check(comp_u8, declared, out)
     dev = out.device
+    if in_offs is not None:
+        if in_offs.dtype != torch.int64 or in_offs.dim() != 1 or not in_offs.is_contiguous():
+            raise TypeError("in_offs must be a contiguous 1-D int64 tensor")
+        if in_offs.device != dev:
+            raise ValueError("in_offs and out must be on one device")
+        if declared <= 0 or in_offs.shape[0] != window_count(declared) + 1:
+            raise ValueError(
+                f"in_offs must hold ceil(declared / {WIN}) + 1 offsets and declared be > 0"
+            )
+    if status is None:
+        status = torch.zeros(4, dtype=torch.int64, device=dev)
+    elif status.dtype != torch.int64 or status.shape != (4,) or status.device != dev:
+        raise ValueError("status must be an int64 [4] tensor on out's device")
     if dev.type == "cpu":
-        return _decode_stream_plain(comp_u8, declared, out)
+        status[:3] = _decode_stream_plain(comp_u8, declared, out)
+        status[3] = 0
+        return status[:3]
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    status = torch.empty(3, dtype=torch.int64, device=dev)
-    _launch(comp_u8, declared, out, status)
-    return status
+    if in_offs is None:
+        status[3] = 0
+        _launch(comp_u8, declared, out, status)
+    else:
+        _launch_windows(comp_u8, declared, out, in_offs, status)
+    global LAUNCHES
+    LAUNCHES += 1
+    return status[:3]
 
 
 def _launch(comp_u8, declared: int, out, status) -> None:
-    """Launch the kernel on checked CUDA tensors, no checks."""
+    """Launch the whole-stream walk on checked CUDA tensors, no checks."""
     _build.launch(
         "decode_stream", out.device,
         comp_u8.data_ptr(), comp_u8.shape[0], declared, out.data_ptr(), status.data_ptr(),
     )
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES_WALK
+    LAUNCHES_WALK += 1
+
+
+def _launch_windows(comp_u8, declared: int, out, in_offs, status, rec=None, passes: int = 3) -> None:
+    """Launch the window route on checked CUDA tensors, no checks: both
+    passes, or one (``passes`` 1 or 2, for timing each alone; pass 2 reads
+    the window records ``rec``, int64 [3 * windows], that pass 1 left)."""
+    nwin = in_offs.shape[0] - 1
+    if rec is None:
+        rec = torch.empty(3 * nwin, dtype=torch.int64, device=out.device)
+    _build.launch(
+        "decode_stream_windows", out.device,
+        comp_u8.data_ptr(), comp_u8.shape[0], declared, in_offs.data_ptr(), nwin,
+        out.data_ptr(), status.data_ptr(), rec.data_ptr(), passes,
+    )
+    global LAUNCHES_WINDOWS
+    LAUNCHES_WINDOWS += 1
 
 
 def _decode_stream_plain(comp_u8, declared: int, out) -> torch.Tensor:
@@ -268,8 +338,11 @@ def decode_raw_stream_bytes(
     reason), reason in {"invalid", "unsupported"} (decode_stream.py:654-728).
 
     ``mode`` (default: ``SNAPPY_TPU_STREAM_MODE``, else ``"grid"``): "grid"
-    runs K4, which serves every copy; "scan" runs K5, which reports a copy
-    reaching more than 64 KiB behind its window's start as "unsupported".
+    runs K4, which serves every copy: on the window route where
+    ``window_index`` finds the stream's windows (before the body goes to
+    the card), as the whole-stream walk elsewhere.  "scan" runs K5, which
+    reports a copy reaching more than 64 KiB behind its window's start as
+    "unsupported".
     A zero declared length takes scan mode in either, as in the JAX
     function."""
     if mode is None:
@@ -277,12 +350,19 @@ def decode_raw_stream_bytes(
     if mode not in ("grid", "scan"):
         raise ValueError(f"SNAPPY_TPU_STREAM_MODE must be grid|scan: {mode!r}")
     dev = config.resolve_device(device)
+    grid = mode == "grid" and declared > 0
+    in_offs = window_index(body, declared) if grid else None
     comp = torch.empty(len(body), dtype=torch.uint8)
     comp.numpy()[:] = np.frombuffer(body, dtype=np.uint8)
     comp = comp.to(dev)
     out = torch.empty(max(declared, 1), dtype=torch.uint8, device=dev)
-    if mode == "grid" and declared > 0:
-        if not int(decode_stream(comp, declared, out)[0]):
+    if grid:
+        status = torch.empty(4, dtype=torch.int64, device=dev)
+        decode_stream(comp, declared, out, None if in_offs is None else in_offs.to(dev), status)
+        ok, _, _, redecoded = status.tolist()
+        global REDECODED
+        REDECODED += redecoded
+        if not ok:
             return None, "invalid"
     else:
         state, _ = decode_stream_scan(comp, declared, out)

@@ -22,7 +22,9 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
 * ``big_window_cases`` and ``stream_cases`` — tag streams for the chunk
   decoder's big-window shape and for the streaming decoders, the ROADMAP's
   watch list included (segments across window edges, far copies);
-  ``scan_edge_cases`` adds the history limit of the scan-mode decoder.
+  ``scan_edge_cases`` adds the history limit of the scan-mode decoder,
+  ``window_cases`` the window route of the grid-mode decoder (copies that
+  reach an earlier window, chains of them, mutants that keep the index).
 * ``smoke_blocks`` — 8 blocks, one of each kind and size the kernels must
   handle, for comparing each kernel with its plain version.
 * ``framed_vectors`` — framed streams for ``uncompress_framed_into`` with
@@ -42,6 +44,7 @@ import numpy as np
 from ..engine import masked_crc32c
 from ..formats import constants as C
 from ..formats import varint
+from ..ops.decode_stream import _tag
 from ..ops.encode_blocks import encode_block
 
 FRAME = 65536
@@ -406,6 +409,103 @@ def scan_edge_cases(seed: int = 43) -> List[Tuple[bytes, int, bytes]]:
             for _ in range(8):
                 p.append(p[-off])
             out.append((literal(head[:lead]) + copy4(off, 8), len(p), bytes(p)))
+    return out
+
+
+def ops_stream(ops) -> Tuple[bytes, bytes]:
+    """(tag stream, payload) of a list of ops: ``bytes`` for a literal,
+    ``(offset, length)`` for a copy-4 (length 1-64)."""
+    body, p = bytearray(), bytearray()
+    for op in ops:
+        if isinstance(op, bytes):
+            body += literal(op)
+            p += op
+        else:
+            off, length = op
+            body += copy4(off, length)
+            for _ in range(length):
+                p.append(p[-off])
+    return bytes(body), bytes(p)
+
+
+def _copy_tags(body: bytes) -> List[Tuple[int, int, int]]:
+    """(input offset, tag kind, output offset) of every copy tag of a valid
+    tag stream."""
+    out, q, o = [], 0, 0
+    while q < len(body):
+        kind, hdr, length, _ = _tag(body, q)
+        if kind:
+            out.append((q, kind, o))
+        q += hdr + (length if kind == 0 else 0)
+        o += length
+    return out
+
+
+def _set_offset(b: bytearray, q: int, kind: int, off: int) -> None:
+    """Rewrite the offset of the copy tag at b[q] (its kind can hold it)."""
+    if kind == 1:
+        b[q] = (b[q] & 0x1F) | ((off >> 8) << 5)
+        b[q + 1] = off & 0xFF
+    else:
+        b[q + 1 : q + (3 if kind == 2 else 5)] = off.to_bytes(2 if kind == 2 else 4, "little")
+
+
+def window_cases(seed: int = 53) -> List[Tuple[bytes, int, Optional[bytes]]]:
+    """(tag stream, declared, payload or None) triples for the window route
+    of the streaming decoder (decode_stream with in_offs):
+
+    * block-encoded streams of about 300 KB of runs, text and the mixed
+      payload: no copy reaches an earlier window;
+    * a copy-4 at the start of window 2 reaching into window 0, a copy from
+      20 bytes before window 2 into it, then a short fourth window: one
+      deferred window;
+    * a chain: windows 2, 3 and 4 each copy from the window before, which
+      is itself deferred, and window 3 holds a repeating copy (offset 20,
+      length 40) whose period starts 10 bytes before it;
+    * ten mutants of the mixed stream that keep every tag's length, so the
+      index still builds: a copy offset set to 0 in a window after the
+      first, after a copy made to reach the window before in the same
+      window, in an earlier one, or alone;
+    * a literal across a 64 KiB boundary: no index (the whole-stream walk).
+
+    Every tag of the first three kinds falls on the window boundaries."""
+    rng = Rand(seed)
+    out: List[Tuple[bytes, int, Optional[bytes]]] = []
+    mixed = mixed_payload(300_000, seed)
+    for p in (_runs(rng, 300_000).tobytes(), _text(rng, 300_000).tobytes(), mixed):
+        out.append((raw_body(p), len(p), p))
+
+    w = [rng.bytes(FRAME).tobytes() for _ in range(3)]
+    body, p = ops_stream([w[0], w[1], (100_000, 64), w[2][:36], (120, 50),
+                          w[2][: FRAME - 150], w[2][:1000]])
+    out.append((body, len(p), p))
+    body, p = ops_stream([
+        w[0], w[1],
+        (70_000, 64), w[2][: FRAME - 64],
+        w[2][:10], (20, 40), (FRAME + 50, 64), w[1][: FRAME - 114],
+        (FRAME, 64), w[0][:5000],
+    ])
+    out.append((body, len(p), p))
+
+    base = raw_body(mixed)
+    copies = [c for c in _copy_tags(base) if c[2] >= FRAME]
+    for t in range(10):
+        b = bytearray(base)
+        q, kind, o = copies[int(rng.ints(len(copies) // 3, len(copies), 1)[0])]
+        _set_offset(b, q, kind, 0)
+        k = o // FRAME
+        # a copy-2 made to reach the window before: in this window, ahead
+        # of the bad tag, or in an earlier window after the first
+        lo = k * FRAME if t % 3 == 0 else FRAME
+        hi = o if t % 3 == 0 else k * FRAME
+        reach = [c for c in copies if c[1] == 2 and lo <= c[2] < hi and c[2] % FRAME < 65_000]
+        if t % 3 != 2 and reach:
+            rq, _, ro = reach[int(rng.ints(0, len(reach), 1)[0])]
+            _set_offset(b, rq, 2, ro % FRAME + 1 + int(rng.ints(0, 500, 1)[0]))
+        out.append((bytes(b), len(mixed), None))
+
+    x = mixed_payload(200_000, seed + 1)
+    out.append((raw_body(x[:60_000]) + literal(x[60_000:70_000]) + raw_body(x[70_000:]), len(x), x))
     return out
 
 

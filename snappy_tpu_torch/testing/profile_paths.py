@@ -1,12 +1,17 @@
-"""Time the port's framed decode paths on one CUDA card, stage by stage.
+"""Time the port's framed and raw decode paths on one CUDA card, stage by
+stage.
 
     python snappy_tpu_torch/testing/profile_paths.py [--tree DIR] [--reps N]
 
 On the seeded 48 MiB payload's level-1 framed stream: ``decode_framed``
 end to end (best and median of ``reps`` after a warm-up), its host stages
 (the frame scan, the device decode into the output array, ``tobytes``)
-and the device time of one call by ``torch.profiler``; then, where the
-package has them, ``streams.sync.uncompress_framed`` and
+and the device time of one call by ``torch.profiler``.  Then the raw
+paths: ``decode`` of the payload's level-1 raw stream end to end, its
+stages where the package has K4's window route (the host window index,
+H2D, the kernels, D2H, ``tobytes``) and its device time, ``decode_batch``
+of the seeded serving batch and ``streams.sync.compress_framed``.  Then,
+where the package has them, ``streams.sync.uncompress_framed`` and
 ``uncompress_framed_into`` through 8 MiB buffers with re-entry, the latter
 with cProfile's top host functions.  ``--tree`` imports
 ``snappy_tpu_torch`` from another checkout (an older commit, for a
@@ -40,6 +45,7 @@ def main() -> None:
         raise SystemExit("profile_paths: torch.cuda is not available")
     import snappy_tpu_torch
     from snappy_tpu_torch import api, engine
+    from snappy_tpu_torch.ops import decode_stream
     from snappy_tpu_torch.formats import constants as C
     from snappy_tpu_torch.formats import framing
     from snappy_tpu_torch.testing import payloads
@@ -89,13 +95,17 @@ def main() -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.decode_framed(stream, device=dev)
-        torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    total = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"decode_framed device time: {total:.2f} ms; " + ", ".join(
-        f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in rows[:5]) + f" {tag}")
+    def device_time(name, fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"{name} device time: {total:.2f} ms; " + ", ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.2f}" for e in rows[:5]) + f" {tag}")
+
+    device_time("decode_framed", lambda: api.decode_framed(stream, device=dev))
+    raw_paths(api, decode_stream, payload, payloads, dev, timed, device_time, tag)
 
     if not hasattr(api, "uncompress_framed_into"):
         return
@@ -124,6 +134,51 @@ def main() -> None:
     for line in text.getvalue().splitlines():
         if line.strip() and ("{" in line or ".py" in line):
             print("  " + line.strip())
+
+
+def raw_paths(api, decode_stream, payload, payloads, dev, timed, device_time, tag) -> None:
+    """The raw decode of the payload's level-1 stream, ``decode_batch`` of
+    the serving batch and ``sync.compress_framed``."""
+    import numpy as np
+    import torch
+
+    raw = api.encode(payload, device=dev)
+    best, med = timed(lambda: api.decode(raw, device=dev))
+    print(f"decode (raw): best {best:.2f} ms, median {med:.2f} ms {tag}")
+    if hasattr(decode_stream, "window_index"):
+        body = payloads.body_of(raw)
+        stages = {"index": [], "H2D": [], "kernels": [], "D2H": [], "tobytes": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            offs = decode_stream.window_index(body, len(payload))
+            t1 = time.perf_counter()
+            comp = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()).to(dev)
+            offs = offs.to(dev)
+            out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            status = decode_stream.decode_stream(comp, len(payload), out, offs)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host = out.cpu()
+            t4 = time.perf_counter()
+            host.numpy().tobytes()
+            t5 = time.perf_counter()
+            assert int(status[0]) == 1
+            for k, a, b in zip(stages, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+                stages[k].append((b - a) * 1e3)
+        print("decode (raw) stages (median ms): " + ", ".join(
+            f"{k} {statistics.median(v):.2f}" for k, v in stages.items()) + f" {tag}")
+    device_time("decode (raw)", lambda: api.decode(raw, device=dev))
+
+    serving, _ = payloads.serving_batch(lambda ps: api.encode_batch(ps, device=dev))
+    best, med = timed(lambda: api.decode_batch(serving, device=dev))
+    print(f"decode_batch: best {best:.2f} ms, median {med:.2f} ms {tag}")
+    from snappy_tpu_torch.streams import sync
+
+    best, med = timed(lambda: sync.compress_framed(io.BytesIO(payload), io.BytesIO(), device=dev))
+    print(f"sync compress_framed: best {best:.2f} ms, median {med:.2f} ms {tag}")
 
 
 if __name__ == "__main__":
