@@ -24,7 +24,11 @@ Phases, each reported on its own lines:
               host index builds, with copies reaching earlier windows
               decoded again by its ordered pass, else the whole-stream
               walk); the GF(2) CRC (K6) on the 8 blocks; equal, or it
-              fails;
+              fails; then the encoder differential: at levels 1 and 2,
+              K3's bytes on payloads.encoder_blocks (the named
+              batch-logic cases, then blocks of every payload kind and the
+              adversarial kinds at random lengths, 1,200 in all) equal the
+              host C encoder's (host_codec.encode_block), or it fails;
 4. framed   — encode_framed / decode_framed of the seeded 48 MiB mixed
               payload: the stream's SHA-256 equals the digest pinned from
               the JAX package and decodes back to the payload; then the
@@ -53,7 +57,8 @@ Phases, each reported on its own lines:
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
               the window route alone and one whole-stream walk of the
-              48 MiB stream.
+              48 MiB stream; for K3 the host C encoder on one host thread
+              over the same 768 blocks, the same-machine control.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -103,6 +108,7 @@ KERNELS = {
     "crc32c_mma": ("snappy_tpu_torch/ops/csrc/crc32c_mma.cu",
                    "snappy_tpu/ops/crc32c_mxu.py:165", "fused_crc"),
 }
+ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate, dense int8 tensor-core peak
 INT8_OPS_PER_S = 1.979e15
 
@@ -364,6 +370,19 @@ def main() -> None:
     want = crc32c_mma._crc32c_mma_plain(frames_h, lens_h)
     err["crc32c_mma"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     assert torch.equal(got, want), ("crc32c_mma", got, want)
+    diff_blocks = payloads.encoder_blocks(ENCODER_DIFFERENTIAL)
+    d_rows, d_lens = block_batch(diff_blocks, dev)
+    for level in (1, 2):
+        enc, elen = encode_blocks.encode_blocks(d_rows, d_lens, level)
+        enc, elen = enc.cpu().numpy(), elen.cpu().tolist()
+        for k, b in enumerate(diff_blocks):
+            want_b = host_codec.encode_block(b, level)
+            assert enc[k, : elen[k]].tobytes() == want_b, \
+                ("encoder differential", level, k, len(b), elen[k], len(want_b))
+    del d_rows, d_lens
+    print(f"kernels: encoder differential: encode_blocks at levels 1 and 2 equals the host C "
+          f"encoder on {len(diff_blocks)} blocks of {sum(map(len, diff_blocks))} bytes "
+          f"(tolerance: exact)")
     print(f"kernels: crc32c, crc32c_mma, encode_blocks (levels 1 and 2), decode_chunks equal "
           f"their plain versions on {len(blocks)} blocks and {len(cases) - len(blocks)} "
           f"malformed/truncated streams; decode_chunks at W={BIG} on {len(big_cases)} big-window "
@@ -611,7 +630,8 @@ def main() -> None:
     big_enc_h = big_enc.cpu().numpy()
     l1_bytes = int(big_elen_h.sum())
     encode_blocks._launch(big, big_lens, big_enc, big_elen, 2)
-    l2_bytes = int(big_elen.sum())
+    big_enc_l2 = (big_enc.cpu().numpy(), big_elen.cpu().tolist())
+    l2_bytes = sum(big_enc_l2[1])
     bcomp, boffs = ragged([big_enc_h[k, :n].tobytes() for k, n in enumerate(big_elen_h.tolist())])
     bcomp, boffs = bcomp.to(dev), boffs.to(dev)
     big_out = torch.empty((nf, 65536), dtype=torch.uint8, device=dev)
@@ -712,6 +732,19 @@ def main() -> None:
           f"{index_ms:.3f} ms ({r_nwin} windows of {int(spans.min())} to {int(spans.max())} input "
           f"bytes, median {int(spans.median())}), pass 1 {pass1_ms:.4f} ms, pass 2 {pass2_ms:.4f} ms, "
           f"whole-stream walk {walk_ms:.2f} ms (one call) {tag}")
+    views = [memoryview(arr)[k * 65536 : (k + 1) * 65536] for k in range(nf)]
+    kernel_out = {1: (big_enc_h, big_elen_h.tolist()), 2: big_enc_l2}
+    for level in (1, 2):
+        t = time.perf_counter()
+        host_blocks = [host_codec.encode_block(v, level) for v in views]
+        host_s = time.perf_counter() - t
+        k_enc, k_len = kernel_out[level]
+        for k, b in enumerate(host_blocks):
+            assert k_enc[k, : k_len[k]].tobytes() == b, ("host C control", level, k)
+        print(f"timing: host C encoder (control), level {level}, one host thread: {host_s * 1e3:.2f} ms "
+              f"for the {nf} x 64 KiB blocks ({nf * 65536 / host_s / 1e9:.3f} GB/s), the same bytes "
+              f"as encode_blocks {tag}")
+    del kernel_out, big_enc_l2
     timing = {
         # name: (main-path shape, its description, bytes out, reps,
         #        kernel on the small set, plain on the small set, small set,

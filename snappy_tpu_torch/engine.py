@@ -448,14 +448,19 @@ def framed_uncompress(
     data: bytes,
     max_size: int = C.MAX_UNCOMPRESSED_LEN,
     check_integrity: bool = True,
+    require_header: bool = True,
     device: config.DeviceLike = None,
 ) -> Tuple[Optional[bytes], str]:
     """Whole-stream framed decode.  Returns (payload, "ok") or (None,
-    reason); reason in {"invalid", "crc", "unknown_chunk", "too_large"}."""
+    reason); reason in {"invalid", "crc", "unknown_chunk", "too_large"}.
+    With ``require_header=False`` the stream may start at its first chunk,
+    without the stream identifier (snappy_tpu/engine.py:880-893)."""
     dev = config.resolve_device(device)
-    if not framing.is_snappy_framed_stream(data):
-        return None, "invalid"
-    start = len(C.FRAMING_HEADER)
+    start = 0
+    if require_header:
+        if not framing.is_snappy_framed_stream(data):
+            return None, "invalid"
+        start = len(C.FRAMING_HEADER)
     chunks = framing.scan_frames(data, start)
     if chunks is None:
         # Distinguish the unskippable-reserved case for error parity.

@@ -66,10 +66,9 @@ STPU_HD uint32_t hash32(uint32_t u, uint32_t shift) {
   return (u * kHashMul) >> shift;
 }
 
-// Literal tag + bytes (snappy_codec.c:47-75), written exactly: no blind
-// bursts past the literal's end.  Returns the new output position.
-STPU_HD uint32_t emit_literal(uint8_t* out, uint32_t op, const uint8_t* lit,
-                              uint32_t len) {
+// The tag of a literal of len bytes (snappy_codec.c:47-75); returns the
+// output position of its first byte.
+STPU_HD uint32_t literal_tag(uint8_t* out, uint32_t op, uint32_t len) {
   const uint32_t n = len - 1;
   if (n < 60) {
     out[op++] = (uint8_t)(n << 2);
@@ -81,8 +80,7 @@ STPU_HD uint32_t emit_literal(uint8_t* out, uint32_t op, const uint8_t* lit,
     out[op++] = (uint8_t)(n & 0xFF);
     out[op++] = (uint8_t)(n >> 8);
   }
-  for (uint32_t k = 0; k < len; ++k) out[op + k] = lit[k];
-  return op + len;
+  return op;
 }
 
 STPU_HD uint32_t emit_copy2(uint8_t* out, uint32_t op, uint32_t offset,

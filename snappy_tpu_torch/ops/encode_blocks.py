@@ -2,7 +2,8 @@
 
 JAX counterpart: snappy_tpu/ops/encode_scalar.py (the TPU kernel
 ``_kernel`` at ``ways=1`` and ``ways=2``, launched by
-``encode_blocks_words``).  The CUDA kernel is ``csrc/encode_blocks.cu``.
+``encode_blocks_words``).  The CUDA kernel is ``csrc/encode_blocks.cu``:
+one warp per block, 32 probes a batch.
 The bytes equal the host C encoder at the same level
 (snappy_codec.c:127-222), which equals the TPU kernel's.  Level >= 2
 selects ``ways=2``, two-entry FIFO hash buckets, as the JAX engine does
@@ -113,6 +114,21 @@ def _copy(out: bytearray, offset: int, length: int) -> None:
         out.extend((((offset >> 8) << 5) | (((length - 4) & 7) << 2) | 1, offset & 0xFF))
 
 
+def table_bits(n: int) -> int:
+    """log2 of the hash table's entries per way for a block of n bytes
+    (snappy_codec.c:138): the least power of two >= n, from 256 to 16 K."""
+    size = 256
+    while size < (1 << _TABLE_BITS) and size < n:
+        size <<= 1
+    return size.bit_length() - 1
+
+
+def hash_word(u, bits: int):
+    """The bucket of the 4-byte word ``u`` (an int, or a numpy uint64
+    array) in a table of 2^bits entries."""
+    return ((u * _K_HASH) & 0xFFFFFFFF) >> (32 - bits)
+
+
 def encode_block(data: bytes, ways: int = 1) -> bytes:
     """Greedy encode of one block (<= 64 KiB) with ``ways``-entry hash
     buckets: the plain version's per-block body, a line-for-line port of
@@ -124,17 +140,14 @@ def encode_block(data: bytes, ways: int = 1) -> bytes:
         if n:
             _literal(out, data)
         return bytes(out)
-    table_size = 256
-    while table_size < (1 << _TABLE_BITS) and table_size < n:
-        table_size <<= 1
-    shift = 32 - (table_size.bit_length() - 1)
-    table = [0] * (ways * table_size)
+    bits = table_bits(n)
+    table = [0] * (ways << bits)
 
     def load(p):
         return int.from_bytes(data[p : p + 4], "little")
 
     def hsh(u):
-        return ((u * _K_HASH) & 0xFFFFFFFF) >> shift
+        return hash_word(u, bits)
 
     ip = 1
     ip_limit = n - C.INPUT_MARGIN

@@ -1,10 +1,12 @@
-"""The native host runtime: the raw tag-stream block scan and the framed
-header scan.
+"""The native host runtime: the raw tag-stream block scan, the framed
+header scan and the host C block encoder.
 
 JAX counterpart: snappy_tpu/ops/host_codec.py (its build,
 ``scan_raw_blocks`` with the parallel ``_scan_blocks``,
-host_codec.py:352-434, and ``scan_frames_records``, host_codec.py:821).  The C sources in ``native/`` are byte-identical
-copies of ``snappy_tpu/ops/native/*.c`` (a test pins them).
+host_codec.py:352-434, ``scan_frames_records``, host_codec.py:821, and the
+per-block entries under ``raw_compress``).  The C sources in ``native/``
+are byte-identical copies of ``snappy_tpu/ops/native/*.c`` (a test pins
+them).
 
 ``cc -O3 -fPIC`` compiles them and ``cc -shared`` links them at first
 use, into ``build/snappy_tpu_torch/`` through ``_build._build``
@@ -50,6 +52,8 @@ _ARGS = {
     ]),
     "stpu_scan_frames": (ctypes.c_long, [_P, ctypes.c_size_t, ctypes.c_size_t, _P, ctypes.c_size_t]),
     "stpu_framed_count": (ctypes.c_long, [_P, ctypes.c_size_t, ctypes.c_size_t]),
+    "stpu_encode_block": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
+    "stpu_encode_block_l2": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
 }
 
 
@@ -110,6 +114,22 @@ def _scan_blocks(src: np.ndarray, declared: int, in_offs: np.ndarray,
         cum.ctypes.data, rec_off.ctypes.data, n_rec.ctypes.data, exit_pos.ctypes.data,
         exit_cum.ctypes.data, errs.ctypes.data, in_offs.ctypes.data, cap,
     )
+
+
+def encode_block(data, level: int = 1) -> bytes:
+    """The host C encoding of one block of at most 64 KiB (any buffer), no
+    varint header: ``stpu_encode_block`` at level 1, ``stpu_encode_block_l2``
+    (two-way buckets) at level >= 2.  These are the bytes that the block
+    encoder kernel (K3) must give."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    n = len(src)
+    if n > C.MAX_BLOCK_LEN:
+        raise ValueError("a block holds at most 65536 bytes")
+    # max_compressed_len plus the 16 bytes a short literal's burst may write
+    out = np.empty((C.max_compressed_len(n) + 16,), dtype=np.uint8)
+    table = np.empty((2 << 14,), dtype=np.uint16)
+    fn = lib().stpu_encode_block_l2 if level >= 2 else lib().stpu_encode_block
+    return out[: fn(src.ctypes.data, n, out.ctypes.data, table.ctypes.data)].tobytes()
 
 
 def scan_raw_blocks(body: bytes, declared: int) -> Optional[np.ndarray]:

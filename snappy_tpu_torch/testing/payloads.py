@@ -27,6 +27,12 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
   reach an earlier window, chains of them, mutants that keep the index).
 * ``smoke_blocks`` — 8 blocks, one of each kind and size the kernels must
   handle, for comparing each kernel with its plain version.
+* ``encoder_cases`` and ``encoder_blocks`` — blocks for the block
+  encoder: named cases of its warp's batch logic and its edges, then
+  seeded blocks of every kind and of adversarial kinds (runs broken by
+  one byte, short and 2047/2048-byte periods, planted words that share
+  hash buckets) at random lengths, for the differential against the host
+  C encoder.
 * ``framed_vectors`` — framed streams for ``uncompress_framed_into`` with
   a budget and the pinned result: the resume point, the walk's error
   order and the CRC checked before the fit.
@@ -45,7 +51,7 @@ from ..engine import masked_crc32c
 from ..formats import constants as C
 from ..formats import varint
 from ..ops.decode_stream import _tag
-from ..ops.encode_blocks import encode_block
+from ..ops.encode_blocks import encode_block, hash_word, table_bits
 
 FRAME = 65536
 MAIN_PATH_FRAMES = 768
@@ -213,6 +219,130 @@ def malformed_chunks() -> List[Tuple[bytes, int]]:
         else:
             out.append((vec[read:], declared))
     return out
+
+
+def _colliding(rng: Rand, word: int, bits: int) -> int:
+    """Another 4-byte word with ``word``'s hash at ``bits`` bits."""
+    want = hash_word(word, bits)
+    while True:
+        cand = rng.u64(1 << 16) & np.uint64(0xFFFFFFFF)
+        for k in np.nonzero(hash_word(cand, bits) == want)[0]:
+            if int(cand[k]) != word:
+                return int(cand[k])
+
+
+def _place(block: np.ndarray, pos: int, word: int) -> None:
+    block[pos : pos + 4] = np.frombuffer(word.to_bytes(4, "little"), dtype=np.uint8)
+
+
+def _match_block(rng: Rand, offset: int, length: int, tail: int = 64) -> bytes:
+    """A block whose first match is ``length`` bytes at ``offset`` (at most
+    32, inside the first batch of probes): ``offset`` random bytes, their
+    periodic extension for ``length`` bytes, a byte that ends the match and
+    ``tail`` random bytes."""
+    head = np.resize(rng.bytes(offset), offset + length)
+    stop = np.array([head[length] ^ 0xFF], dtype=np.uint8)
+    return np.concatenate([head, stop, rng.bytes(tail)]).tobytes()
+
+
+def _broken_runs(rng: Rand, n: int) -> np.ndarray:
+    """One byte value, broken by a single other byte every ~50 bytes."""
+    c = int(rng.ints(0, 256, 1)[0])
+    flat = np.full(n, c, dtype=np.uint8)
+    if n:
+        flat[rng.ints(0, n, n // 50 + 1)] = c ^ 1
+    return flat
+
+
+def _short_period(rng: Rand, n: int) -> np.ndarray:
+    """A period of 1-8 bytes (offsets 1-8, self-overlapping copies)."""
+    return np.resize(rng.bytes(int(rng.ints(1, 9, 1)[0])), n)
+
+
+def _long_period(rng: Rand, n: int) -> np.ndarray:
+    """Random bytes repeated with a period of 2047 or 2048 (the copy-1 and
+    copy-2 offset edge)."""
+    return np.resize(rng.bytes(int(rng.ints(2047, 2049, 1)[0])), n)
+
+
+def _shared_buckets(rng: Rand, n: int) -> np.ndarray:
+    """Random bytes with 8 words planted at n / 16 random places: probes of
+    one batch share buckets and hit earlier lanes."""
+    flat = rng.bytes(n)
+    if n >= 4:
+        words = rng.ints(0, 1 << 32, 8)
+        for pos, w in zip(rng.ints(0, n - 3, n // 16), rng.ints(0, 8, n // 16)):
+            _place(flat, int(pos), int(words[w]))
+    return flat
+
+
+def encoder_cases(seed: int = 61) -> List[Tuple[str, bytes]]:
+    """Named blocks for the block encoder's batch logic and its edges:
+    probes that share a bucket within one batch of 32 (2, 3 and 32 of
+    them), the first hit at lane 0, lane 31 or in no lane of a batch, skip
+    steps of 2 and more across batches, ip_limit inside a batch, a
+    candidate at position 0, matches that run to the end, match lengths and
+    offsets at the tag edges, and block lengths at the size edges (the hash
+    table scales with the block)."""
+    rng = Rand(seed)
+    cases = []
+    b = rng.bytes(128)  # lane 19 hits the position lane 2 stored in its batch
+    w = int(rng.ints(0, 1 << 32, 1)[0])
+    _place(b, 3, w)
+    _place(b, 20, w)
+    cases.append(("bucket_2", b.tobytes()))
+    # X at 3, Y with X's hash at 10, X at 20: level 1 misses at 20 (its
+    # candidate is 10), level 2 hits its second candidate, 3
+    b = rng.bytes(128)
+    x = int(rng.ints(0, 1 << 32, 1)[0])
+    _place(b, 3, x)
+    _place(b, 10, _colliding(rng, x, table_bits(128)))
+    _place(b, 20, x)
+    cases.append(("bucket_3", b.tobytes()))
+    cases.append(("bucket_32_run", b"\x07" * 300))
+    cases.append(("runs_broken", (b"a" * 37 + b"b") * 20 + b"a" * 300 + b"c" + b"a" * 5))
+    cases += [(f"period_{p}", np.resize(rng.bytes(p), 1000 + p).tobytes()) for p in range(1, 9)]
+    cases.append(("hit_lane_0", _match_block(rng, 1, 30)))
+    cases.append(("hit_lane_31_at_0", _match_block(rng, 32, 40)))
+    cases.append(("no_hit_4096", rng.bytes(4096).tobytes()))
+    cases.append(("skip_steps_20000", rng.bytes(20000).tobytes()))
+    cases += [(f"limit_in_batch_{n}", rng.bytes(n).tobytes()) for n in (20, 40, 47, 60)]
+    cases.append(("limit_after_match", _match_block(rng, 5, 20, tail=0)))
+    cases.append(("match_to_end", np.resize(rng.bytes(7), 500).tobytes()))
+    head = rng.bytes(20).tobytes()
+    cases.append(("match_to_end_40", head + head))
+    cases += [(f"length_{k}", _match_block(rng, 9, k)) for k in (4, 11, 12, 60, 64, 67, 68, 69, 200, 1000)]
+    cases += [(f"offset_{o}", _match_block(rng, o, 100)) for o in (1, 2, 3)]
+    cases += [(f"offset_{o}", np.resize(rng.bytes(o), 16 * o).tobytes()) for o in (2047, 2048)]
+    sizes = (0, 16, 17, 18, 33, 255, 256, 257, 4096, 16384, 16385, 65535, 65536)
+    cases += [(f"size_{n}", mixed_payload(n, seed=seed + n)) for n in sizes]
+    return cases
+
+
+ENCODER_KINDS = {
+    **KINDS,
+    "broken_runs": _broken_runs,
+    "short_period": _short_period,
+    "long_period": _long_period,
+    "shared_buckets": _shared_buckets,
+}
+
+
+def encoder_blocks(count: int, seed: int = 67) -> List[bytes]:
+    """``encoder_cases`` and then seeded blocks up to ``count`` in all: each
+    of a kind of ENCODER_KINDS or a slice of the mixed payload, in turn, at
+    a random length of 1 to 65,536 bytes."""
+    rng = Rand(seed)
+    blocks = [b for _, b in encoder_cases()]
+    kinds = list(ENCODER_KINDS.values())
+    while len(blocks) < count:
+        n = int(rng.ints(1, FRAME + 1, 1)[0])
+        k = len(blocks) % (len(kinds) + 1)
+        if k == len(kinds):
+            blocks.append(mixed_payload(n, seed=int(rng.ints(0, 1 << 30, 1)[0])))
+        else:
+            blocks.append(kinds[k](rng, n).tobytes())
+    return blocks
 
 
 def literal(data: bytes) -> bytes:

@@ -139,6 +139,38 @@ def test_decode_matches_jax_device_backend(name, check_integrity):
         assert got == (payload, "ok")
 
 
+def _headerless(kind):
+    """Streams for require_header: frames without the stream identifier,
+    a stream with it, and headerless streams whose first chunk is padding
+    or has a bad CRC."""
+    payload, stream, ch = _base()
+    frames = bytes(stream[len(C.FRAMING_HEADER):])
+    if kind == "no_identifier":
+        return frames
+    if kind == "with_identifier":
+        return stream
+    if kind == "padding_first":
+        return _hdr(C.CHUNK_PADDING, 3) + b"\x00\x00\x00" + frames
+    s = bytearray(frames)  # "bad_crc_first"
+    s[ch[0].data_pos - len(C.FRAMING_HEADER)] ^= 0x55
+    return bytes(s)
+
+
+@pytest.mark.parametrize("kind", ["no_identifier", "with_identifier", "padding_first", "bad_crc_first"])
+@pytest.mark.parametrize("require_header", [True, False])
+def test_require_header_matches_jax_host_backend(kind, require_header):
+    stream = _headerless(kind)
+    want = jax_engine.framed_uncompress(stream, require_header=require_header, backend="host")
+    got = engine.framed_uncompress(stream, require_header=require_header, device="cpu")
+    assert got == want
+    if require_header and kind != "with_identifier":
+        assert got == (None, "invalid")
+    if not require_header and kind in ("no_identifier", "padding_first"):
+        assert got == (payloads.mixed_payload(6 * 65536 + 500, seed=1), "ok")
+    if not require_header and kind == "bad_crc_first":
+        assert got == (None, "crc")
+
+
 def test_error_order_reasons():
     expect = {
         "crc_then_invalid": "crc", "invalid_then_crc": "invalid",
