@@ -29,6 +29,15 @@ Phases, each reported on its own lines:
               batch-logic cases, then blocks of every payload kind and the
               adversarial kinds at random lengths, 1,200 in all) equal the
               host C encoder's (host_codec.encode_block), or it fails;
+              then the decoder differential: 600 seeded raw streams of
+              30 B to 200 KB, 60% of them mutated (bit flips, truncations,
+              insertions, duplications; payloads.mutation_streams), through
+              engine.raw_uncompress_batch (K2 at both shapes, K4 above
+              128 KiB) and through K2 directly at W = 64 KiB and 128 KiB,
+              against the host C decoder (host_codec.decode_tags, by
+              payloads.host_raw_decode): verdicts and bytes equal, and
+              K2's written counts and whole rows (zeros included) equal
+              its plain version's on the same rows, or it fails;
 4. framed   — encode_framed / decode_framed of the seeded 48 MiB mixed
               payload: the stream's SHA-256 equals the digest pinned from
               the JAX package and decodes back to the payload; then the
@@ -58,7 +67,11 @@ Phases, each reported on its own lines:
               end-to-end rates; for K4 also the host index, each pass of
               the window route alone and one whole-stream walk of the
               48 MiB stream; for K3 the host C encoder on one host thread
-              over the same 768 blocks, the same-machine control.
+              over the same 768 blocks, the same-machine control; for K2
+              the registers of each shape's kernel (ptxas) and its CTAs per
+              SM, and the A/B of its two layouts at both shapes
+              (testing/decode_layouts.measure: the row in shared memory,
+              or written in place in global memory).
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -75,6 +88,7 @@ available.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import hashlib
 import io
@@ -109,6 +123,8 @@ KERNELS = {
                    "snappy_tpu/ops/crc32c_mxu.py:165", "fused_crc"),
 }
 ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
+DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
+K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate, dense int8 tensor-core peak
 INT8_OPS_PER_S = 1.979e15
 
@@ -383,6 +399,66 @@ def main() -> None:
     print(f"kernels: encoder differential: encode_blocks at levels 1 and 2 equals the host C "
           f"encoder on {len(diff_blocks)} blocks of {sum(map(len, diff_blocks))} bytes "
           f"(tolerance: exact)")
+
+    mutated = payloads.mutation_streams(DECODER_DIFFERENTIAL)
+    m_streams = [m for m, _ in mutated]
+    m_want = [payloads.host_raw_decode(m) for m in m_streams]
+    divergences = collections.Counter()  # (route, what differs, mutation kind)
+
+    def k2_and_k4():
+        return (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG, decode_stream.LAUNCHES)
+
+    before = k2_and_k4()
+    m_batch = engine.raw_uncompress_batch(m_streams, device=dev)
+    m_routed = tuple(a - b for a, b in zip(k2_and_k4(), before))
+    for (got_m, _), want_m, (_, kind) in zip(m_batch, m_want, mutated):
+        if got_m != want_m:
+            what = "verdict" if (got_m is None) != (want_m is None) else "bytes"
+            divergences["raw_uncompress_batch", what, kind] += 1
+    m_direct = {}
+    for width in (decode_chunks.CHUNK, decode_chunks.MAX_OUT):
+        rows = []  # (body, declared, mutation kind) of the streams that fit W
+        for m, kind in mutated:
+            m_decl, read = varint.decode_uint32(m)
+            if m_decl is not None and m_decl <= width:
+                rows.append((m[read:], m_decl, kind))
+        m_comp, m_offs = ragged([b for b, _, _ in rows])
+        m_decls = torch.tensor([d for _, d, _ in rows], dtype=torch.int32)
+        m_out = torch.empty((len(rows), width), dtype=torch.uint8, device=dev)
+        m_ok, m_written = decode_chunks.decode_chunks(m_comp.to(dev), m_offs.to(dev), m_decls.to(dev), m_out)
+        m_ok, m_written, m_out = m_ok.cpu().numpy(), m_written.cpu().numpy(), m_out.cpu().numpy()
+        # the plain version on the same rows: written and the whole row,
+        # the bytes before the first bad tag and the zeros after them
+        p_out = torch.empty((len(rows), width), dtype=torch.uint8)
+        p_ok, p_written = decode_chunks._decode_chunks_plain(m_comp, m_offs, m_decls, p_out)
+        p_ok, p_written, p_out = p_ok.numpy(), p_written.numpy(), p_out.numpy()
+        for r, (body, m_decl, kind) in enumerate(rows):
+            host_m, host_written = host_codec.decode_tags(body, m_decl)
+            host_ok = host_m is not None and host_written == m_decl
+            route = f"decode_chunks W={width}"
+            if bool(m_ok[r]) != host_ok or bool(m_ok[r]) != bool(p_ok[r]):
+                divergences[route, "verdict", kind] += 1
+            elif host_ok and m_out[r, :m_decl].tobytes() != host_m:
+                divergences[route, "bytes", kind] += 1
+            elif m_written[r] != p_written[r]:
+                divergences[route, "written", kind] += 1
+            elif not np.array_equal(m_out[r], p_out[r]):
+                divergences[route, "row", kind] += 1
+        m_direct[width] = (len(rows), int(m_ok.sum()))
+        del m_out, p_out
+    kinds = collections.Counter(kind for _, kind in mutated)
+    print(f"kernels: decoder differential: {len(mutated)} seeded raw streams of "
+          f"{sum(map(len, m_streams))} bytes ({kinds.pop('valid')} valid, "
+          f"{sum(kinds.values())} mutants: " + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
+          + f"; {sum(w is not None for w in m_want)} valid by the host C decoder) through "
+          f"engine.raw_uncompress_batch (launches of decode_chunks, decode_chunks_big, "
+          f"decode_stream: {m_routed}) and decode_chunks directly (streams, of them valid: "
+          f"{m_direct[decode_chunks.CHUNK]} at W={decode_chunks.CHUNK}, "
+          f"{m_direct[decode_chunks.MAX_OUT]} at W={decode_chunks.MAX_OUT}), against the host C "
+          f"decoder, and decode_chunks' written counts and whole rows against its plain version: "
+          f"{sum(divergences.values())} divergences {dict(divergences)} (tolerance: exact)")
+    assert not divergences, ("decoder differential", dict(divergences))
+    assert m_routed[0] > 0 and m_routed[1] > 0 and m_routed[2] > 0, ("decoder differential routes", m_routed)
     print(f"kernels: crc32c, crc32c_mma, encode_blocks (levels 1 and 2), decode_chunks equal "
           f"their plain versions on {len(blocks)} blocks and {len(cases) - len(blocks)} "
           f"malformed/truncated streams; decode_chunks at W={BIG} on {len(big_cases)} big-window "
@@ -810,6 +886,22 @@ def main() -> None:
         if name == "decode_stream":
             rows[-1].update({"pass1_ms": pass1_ms, "pass2_ms": pass2_ms, "index_ms": index_ms,
                              "walk_ms": walk_ms, "walk_over_ms": walk_ms / ms})
+    # K2: registers and CTAs per SM of each shape's kernel, and both layouts
+    from snappy_tpu_torch.testing import decode_layouts
+
+    k2_regs = decode_layouts.registers(_build.cuda_build_log())
+    k2_layouts = decode_layouts.measure(reps=10, profile=False)
+    for row in rows:
+        if row["name"] in K2_SHAPE:
+            shape = K2_SHAPE[row["name"]]
+            layout, times = k2_layouts[shape]["layout"], k2_layouts[shape]["ms"]
+            row.update({"layout": layout, "registers": k2_regs[layout],
+                        "ctas_per_sm": k2_layouts[shape]["ctas_per_sm"][layout],
+                        "layouts_ms": times})
+            print(f"timing: {row['name']} ({shape} shape) layout {layout}: {row['registers']} "
+                  f"registers, {row['ctas_per_sm']} CTAs per SM; the A/B (a, b, b, a): layout a "
+                  f"{times['a'][0]:.4f} / {times['a'][1]:.4f} ms, layout b {times['b'][0]:.4f} / "
+                  f"{times['b'][1]:.4f} ms {tag}")
     torch.cuda.synchronize()
     payload_t = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     assert r_status.tolist() == [1, len(payload), len(r_body), 0] and torch.equal(r_out.cpu(), payload_t), \

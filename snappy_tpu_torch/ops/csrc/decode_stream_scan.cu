@@ -53,9 +53,6 @@ enum : int {
   kStateWords = 16,
 };
 
-STPU_HD int64_t min_i64(int64_t a, int64_t b) { return a < b ? a : b; }
-STPU_HD int64_t max_i64(int64_t a, int64_t b) { return a > b ? a : b; }
-
 // One scan step (decode_raw_stream's body and the kernel it calls) over
 // the raw tag stream comp[0, n) with declared length `declared`, writing
 // the window at out[written_total, ...) and the step's written length to

@@ -58,72 +58,12 @@
 // both ways.
 //
 // One source, two builds: the warp code is written against Lanes<T> and
-// the collectives below, which are registers and intrinsics on the card
-// and 32-entry arrays and loops in the CPU twin, so the twin runs the
-// same 32-lane batch logic.
+// the collectives of snappy_common.cuh, which are registers and
+// intrinsics on the card and 32-entry arrays and loops in the CPU twin, so
+// the twin runs the same 32-lane batch logic.
 #include "snappy_common.cuh"
 
 namespace stpu {
-
-// ---- the warp, for the card and for the twin ----------------------------
-// A Lanes<T> holds one value per lane; STPU_LANES(l) runs its body for lane
-// l: once in each thread on the card, for l = 0 .. 31 in turn in the twin.
-// Plain scalars are warp-uniform.  Two rules keep the builds equal: a
-// STPU_LANES body calls no collective, and no lane reads in a body what
-// another lane writes in it (table reads and writes sit in separate bodies
-// with warp_sync() between them).
-#ifdef __CUDA_ARCH__
-template <class T>
-struct Lanes {
-  T v;
-  __device__ __forceinline__ T& operator[](uint32_t) { return v; }
-  __device__ __forceinline__ const T& operator[](uint32_t) const { return v; }
-};
-#define STPU_LANES(l) \
-  for (uint32_t l = threadIdx.x & 31u, l##_once = 0; l##_once < 1; ++l##_once)
-constexpr uint32_t kAll = 0xFFFFFFFFu;
-__device__ __forceinline__ uint32_t warp_ballot(const Lanes<bool>& b) {
-  return __ballot_sync(kAll, b.v);
-}
-// Per lane l, x of lane src[l].
-__device__ __forceinline__ Lanes<uint32_t> warp_shfl(const Lanes<uint32_t>& x,
-                                                     const Lanes<uint32_t>& src) {
-  return {__shfl_sync(kAll, x.v, src.v)};
-}
-__device__ __forceinline__ uint32_t warp_bcast(const Lanes<uint32_t>& x, uint32_t src) {
-  return __shfl_sync(kAll, x.v, src);
-}
-__device__ __forceinline__ void warp_sync() { __syncwarp(); }
-__device__ __forceinline__ uint32_t high_lane(uint32_t m) { return 31 - __clz(m); }
-__device__ __forceinline__ uint32_t low_lane(uint32_t m) { return __ffs(m) - 1; }
-__device__ __forceinline__ uint32_t popc(uint32_t m) { return __popc(m); }
-#else
-template <class T>
-struct Lanes {
-  T v[32];
-  T& operator[](uint32_t l) { return v[l]; }
-  const T& operator[](uint32_t l) const { return v[l]; }
-};
-#define STPU_LANES(l) for (uint32_t l = 0; l < 32; ++l)
-inline uint32_t warp_ballot(const Lanes<bool>& b) {
-  uint32_t m = 0;
-  for (uint32_t l = 0; l < 32; ++l) m |= (uint32_t)b[l] << l;
-  return m;
-}
-inline Lanes<uint32_t> warp_shfl(const Lanes<uint32_t>& x, const Lanes<uint32_t>& src) {
-  Lanes<uint32_t> r;
-  for (uint32_t l = 0; l < 32; ++l) r[l] = x[src[l] & 31];
-  return r;
-}
-inline uint32_t warp_bcast(const Lanes<uint32_t>& x, uint32_t src) { return x[src & 31]; }
-inline void warp_sync() {}
-inline uint32_t high_lane(uint32_t m) { return 31 - __builtin_clz(m); }
-inline uint32_t low_lane(uint32_t m) { return __builtin_ctz(m); }
-inline uint32_t popc(uint32_t m) { return __builtin_popcount(m); }
-#endif
-
-// Lanes 0 .. l.
-STPU_HD uint32_t lanes_upto(uint32_t l) { return l >= 31 ? 0xFFFFFFFFu : (2u << l) - 1; }
 
 // Per lane, the mask of the lanes whose x agrees with its own in bits 0 ..
 // kBits - 1: kBits ballots, all issued before the first result is used.

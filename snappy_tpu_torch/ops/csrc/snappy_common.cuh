@@ -1,6 +1,7 @@
 // Shared helpers of the codec kernels: byte-wise loads, the match hash, the
-// tag emitters, the tag parser and the lane-strided segment emitters of the
-// streaming decoders, all __host__ __device__.
+// tag emitters, the tag parser, the lane-strided segment emitters of the
+// streaming decoders, all __host__ __device__, and the warp of the
+// one-warp kernels (Lanes<T> and its collectives, below).
 //
 // The per-chunk bodies in crc32c.cu, decode_chunks.cu, decode_stream.cu,
 // decode_stream_scan.cu and encode_blocks.cu
@@ -42,6 +43,9 @@ constexpr uint32_t kMinNonLiteral = 17;    // MIN_NON_LITERAL_BLOCK_SIZE
 constexpr uint32_t kTableBits = 14;        // encoder hash table: 16 K entries
 constexpr uint32_t kTableSize = 1u << kTableBits;
 constexpr uint32_t kHashMul = 0x1E35A7BDu;
+
+STPU_HD int64_t min_i64(int64_t a, int64_t b) { return a < b ? a : b; }
+STPU_HD int64_t max_i64(int64_t a, int64_t b) { return a > b ? a : b; }
 
 // Little-endian 32-bit load from any address, one byte at a time.
 STPU_HD uint32_t load_le32(const uint8_t* p) {
@@ -178,5 +182,103 @@ STPU_HD void lanes_copy(uint8_t* buf, uint64_t mask, uint64_t o, uint64_t off,
   }
   STPU_SYNCWARP();
 }
+
+// ---- the warp, for the card and for the twin ----------------------------
+// The one-warp kernels (decode_chunks.cu, encode_blocks.cu) are written
+// against these.  A Lanes<T> holds one value per lane; STPU_LANES(l) runs
+// its body for lane l: once in each thread on the card, for l = 0 .. 31 in
+// turn in the twin.  Plain scalars are warp-uniform.  Two rules keep the
+// builds equal: a STPU_LANES body calls no collective, and no lane reads in
+// a body what another lane writes in it (reads and writes of shared state
+// sit in separate bodies with warp_sync() between them).
+#ifdef __CUDA_ARCH__
+template <class T>
+struct Lanes {
+  T v;
+  __device__ __forceinline__ T& operator[](uint32_t) { return v; }
+  __device__ __forceinline__ const T& operator[](uint32_t) const { return v; }
+};
+#define STPU_LANES(l) \
+  for (uint32_t l = threadIdx.x & 31u, l##_once = 0; l##_once < 1; ++l##_once)
+constexpr uint32_t kAll = 0xFFFFFFFFu;
+__device__ __forceinline__ uint32_t warp_ballot(const Lanes<bool>& b) {
+  return __ballot_sync(kAll, b.v);
+}
+// Per lane l, x of lane src[l].
+__device__ __forceinline__ Lanes<uint32_t> warp_shfl(const Lanes<uint32_t>& x,
+                                                     const Lanes<uint32_t>& src) {
+  return {__shfl_sync(kAll, x.v, src.v)};
+}
+__device__ __forceinline__ uint32_t warp_bcast(const Lanes<uint32_t>& x, uint32_t src) {
+  return __shfl_sync(kAll, x.v, src);
+}
+// The OR of x over the lanes.
+__device__ __forceinline__ uint32_t warp_or(const Lanes<uint32_t>& x) {
+  return __reduce_or_sync(kAll, x.v);
+}
+// Per lane l, the sum of x over lanes 0 .. l (five shuffles up); T is a
+// 32- or 64-bit unsigned integer.
+template <class T>
+__device__ __forceinline__ Lanes<T> warp_scan_add(const Lanes<T>& x) {
+  T s = x.v;
+  const uint32_t lane = threadIdx.x & 31u;
+#pragma unroll
+  for (uint32_t d = 1; d < 32; d <<= 1) {
+    const T y = __shfl_up_sync(kAll, s, d);
+    if (lane >= d) s += y;
+  }
+  return {s};
+}
+__device__ __forceinline__ void warp_sync() { __syncwarp(); }
+__device__ __forceinline__ uint32_t high_lane(uint32_t m) { return 31 - __clz(m); }
+__device__ __forceinline__ uint32_t low_lane(uint32_t m) { return __ffs(m) - 1; }
+__device__ __forceinline__ uint32_t popc(uint32_t m) { return __popc(m); }
+#else
+template <class T>
+struct Lanes {
+  T v[32];
+  T& operator[](uint32_t l) { return v[l]; }
+  const T& operator[](uint32_t l) const { return v[l]; }
+};
+// Lanes 0 .. 31 in turn, or 31 .. 0 in a build that defines
+// STPU_TWIN_REVERSE_LANES: the tests run both orders, so a lane that read
+// in a body what another lane writes in it would show.
+#ifdef STPU_TWIN_REVERSE_LANES
+#define STPU_LANES(l) \
+  for (uint32_t l##_k = 0, l = 31; l##_k < 32; ++l##_k, l = 31 - l##_k)
+#else
+#define STPU_LANES(l) for (uint32_t l = 0; l < 32; ++l)
+#endif
+inline uint32_t warp_ballot(const Lanes<bool>& b) {
+  uint32_t m = 0;
+  for (uint32_t l = 0; l < 32; ++l) m |= (uint32_t)b[l] << l;
+  return m;
+}
+inline Lanes<uint32_t> warp_shfl(const Lanes<uint32_t>& x, const Lanes<uint32_t>& src) {
+  Lanes<uint32_t> r;
+  for (uint32_t l = 0; l < 32; ++l) r[l] = x[src[l] & 31];
+  return r;
+}
+inline uint32_t warp_bcast(const Lanes<uint32_t>& x, uint32_t src) { return x[src & 31]; }
+inline uint32_t warp_or(const Lanes<uint32_t>& x) {
+  uint32_t m = 0;
+  for (uint32_t l = 0; l < 32; ++l) m |= x[l];
+  return m;
+}
+template <class T>
+inline Lanes<T> warp_scan_add(const Lanes<T>& x) {
+  Lanes<T> r;
+  T s = 0;
+  for (uint32_t l = 0; l < 32; ++l) r[l] = s += x[l];
+  return r;
+}
+inline void warp_sync() {}
+inline uint32_t high_lane(uint32_t m) { return 31 - __builtin_clz(m); }
+inline uint32_t low_lane(uint32_t m) { return __builtin_ctz(m); }
+inline uint32_t popc(uint32_t m) { return __builtin_popcount(m); }
+#endif
+
+// Lanes 0 .. l.
+STPU_HD uint32_t lanes_upto(uint32_t l) { return l >= 31 ? 0xFFFFFFFFu : (2u << l) - 1; }
 
 }  // namespace stpu

@@ -5,8 +5,8 @@ JAX counterpart: snappy_tpu/ops/decode_scalar.py (the TPU kernel
 chunk shape, <= 64 KiB out, and by ``decode_raw_words`` /
 ``decode_raw_batch_words`` at the raw format's big-window shape, <= 128 KiB
 out), with the in-kernel helpers of scalar_emit.py and emit_long.py folded
-in.  The CUDA kernel is ``csrc/decode_chunks.cu``; the width ``W`` of
-``out`` is its shape.
+in.  The CUDA kernel is ``csrc/decode_chunks.cu``, one warp per chunk;
+the width ``W`` of ``out`` is its shape.
 
 Inputs arrive ragged: one uint8 buffer of tag streams and int64 offsets,
 chunk ``i`` being ``comp_u8[offsets[i]:offsets[i + 1]]``.  There is no

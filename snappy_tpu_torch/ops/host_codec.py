@@ -1,12 +1,12 @@
 """The native host runtime: the raw tag-stream block scan, the framed
-header scan and the host C block encoder.
+header scan, the host C block encoder and the host C tag decoder.
 
 JAX counterpart: snappy_tpu/ops/host_codec.py (its build,
 ``scan_raw_blocks`` with the parallel ``_scan_blocks``,
-host_codec.py:352-434, ``scan_frames_records``, host_codec.py:821, and the
-per-block entries under ``raw_compress``).  The C sources in ``native/``
-are byte-identical copies of ``snappy_tpu/ops/native/*.c`` (a test pins
-them).
+host_codec.py:352-434, ``scan_frames_records``, host_codec.py:821,
+``decode_tags``, host_codec.py:303, and the per-block entries under
+``raw_compress``).  The C sources in ``native/`` are byte-identical copies
+of ``snappy_tpu/ops/native/*.c`` (a test pins them).
 
 ``cc -O3 -fPIC`` compiles them and ``cc -shared`` links them at first
 use, into ``build/snappy_tpu_torch/`` through ``_build._build``
@@ -54,6 +54,7 @@ _ARGS = {
     "stpu_framed_count": (ctypes.c_long, [_P, ctypes.c_size_t, ctypes.c_size_t]),
     "stpu_encode_block": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
     "stpu_encode_block_l2": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
+    "stpu_decode_tags": (ctypes.c_int, [_P, ctypes.c_size_t, _P, ctypes.c_size_t, _P]),
 }
 
 
@@ -130,6 +131,25 @@ def encode_block(data, level: int = 1) -> bytes:
     table = np.empty((2 << 14,), dtype=np.uint16)
     fn = lib().stpu_encode_block_l2 if level >= 2 else lib().stpu_encode_block
     return out[: fn(src.ctypes.data, n, out.ctypes.data, table.ctypes.data)].tobytes()
+
+
+def decode_tags(body, out_len: int) -> Tuple[Optional[bytes], int]:
+    """The host C decoder (``stpu_decode_tags``) on one raw tag stream (no
+    varint header) into at most ``out_len`` bytes: (the output, written),
+    or (None, 0) for a malformed stream, as
+    ``snappy_tpu.ops.host_codec.decode_tags`` gives them.  The chunk
+    decoder (K2) says ok exactly when this gives bytes and written equals
+    ``out_len``, and then the same bytes."""
+    src = np.frombuffer(bytes(body), dtype=np.uint8)
+    out = np.empty((out_len,), dtype=np.uint8)
+    written = ctypes.c_size_t(0)
+    rc = lib().stpu_decode_tags(
+        src.ctypes.data if len(src) else None, len(src),
+        out.ctypes.data if out_len else None, out_len, ctypes.byref(written),
+    )
+    if rc != 0:
+        return None, 0
+    return out[: written.value].tobytes(), written.value
 
 
 def scan_raw_blocks(body: bytes, declared: int) -> Optional[np.ndarray]:

@@ -36,6 +36,9 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
 * ``framed_vectors`` — framed streams for ``uncompress_framed_into`` with
   a budget and the pinned result: the resume point, the walk's error
   order and the CRC checked before the fit.
+* ``decoder_cases`` and ``mutation_streams`` — named cases of the chunk
+  decoder's batch logic, and seeded streams and mutants for the decoder
+  differential against the host C decoder.
 * ``MALFORMED_RAW`` — a copy of ``tests/test_oracle.MALFORMED_RAW`` (a test
   pins the copy equal to the original), and ``malformed_chunks`` made from
   it for the chunk decoder.
@@ -637,6 +640,187 @@ def window_cases(seed: int = 53) -> List[Tuple[bytes, int, Optional[bytes]]]:
     x = mixed_payload(200_000, seed + 1)
     out.append((raw_body(x[:60_000]) + literal(x[60_000:70_000]) + raw_body(x[70_000:]), len(x), x))
     return out
+
+
+class _Ops:
+    """A tag stream and its payload, op by op: literals with a chosen
+    number of length bytes, copies of a chosen tag kind, raw bytes."""
+
+    def __init__(self, rng: Rand):
+        self.rng = rng
+        self.body = bytearray()
+        self.out = bytearray()
+
+    def lit(self, n: int, extra: Optional[int] = None) -> "_Ops":
+        """A literal of n random bytes; its length in ``extra`` bytes (1-4),
+        or the shortest header."""
+        data = self.rng.bytes(n).tobytes()
+        if extra is None:
+            self.body += literal(data)
+        else:
+            self.body += bytes([(59 + extra) << 2]) + (n - 1).to_bytes(extra, "little") + data
+        self.out += data
+        return self
+
+    def copy(self, offset: int, length: int, kind: int = 2) -> "_Ops":
+        """A copy tag of kind 1 (length 4-11, offset < 2048), 2 or 3."""
+        if kind == 1:
+            self.body += bytes([1 | ((offset >> 8) << 5) | ((length - 4) << 2), offset & 0xFF])
+        else:
+            self.body += copy2(offset, length) if kind == 2 else copy4(offset, length)
+        for _ in range(length):
+            self.out.append(self.out[len(self.out) - offset] if 0 < offset <= len(self.out) else 0)
+        return self
+
+    def lead(self, p: int) -> "_Ops":
+        """Tags of exactly p input bytes (p >= 2) from an empty stream: a
+        literal, then 2-byte copies at offset 1."""
+        x = p - 1 if p <= 61 else 60 - (p - 61) % 2
+        self.lit(x)
+        for _ in range((p - 1 - x) // 2):
+            self.copy(1, 4, kind=1)
+        assert len(self.body) == p
+        return self
+
+    def case(self, name: str, declared: Optional[int] = None):
+        return name, bytes(self.body), len(self.out) if declared is None else declared
+
+
+def decoder_cases(lookahead: int, ring: int, seed: int = 71) -> List[Tuple[str, bytes, int]]:
+    """Named (name, tag stream, declared) cases for the chunk decoder's
+    batch logic (K2: tags that start in the first ``lookahead`` bytes from
+    the cursor, parsed from an input ring of ``ring`` bytes, the constants
+    that ``testing.decode_layouts.kernel_params`` reads from a build of
+    ``decode_chunks.cu``): a tag header cut by
+    the lookahead's end; literals with 1-4 length bytes whose header ends
+    past it; literals longer than the ring; copies of the tag just before
+    them and one whose source ends where the batch's output starts;
+    self-overlapping copies at offsets 1-3 and 4-7 in one batch; the
+    first bad tag at a batch's first lane, a middle lane, its last tag and
+    lane 31; a copy's offset at the output so far, then one past it; the
+    declared length exceeded mid-batch; a literal of 2^32 bytes; tags
+    truncated at the
+    end of the input; empty bodies; a body longer than
+    max_compressed_len(65536); a stream declaring more than 64 KiB (for
+    the big window only)."""
+    rng = Rand(seed)
+
+    def ops():
+        return _Ops(rng)
+
+    cases = []
+    for kind, hdr in ((1, 2), (2, 3), (3, 5)):
+        for p in range(lookahead - hdr + 1, lookahead):
+            cases.append(ops().lead(p).copy(3, 9, kind).lit(8).copy(20, 30).case(f"hdr_split_copy{kind}_at_{p}"))
+    for extra in (1, 2, 3, 4):
+        for p in sorted({lookahead - extra, lookahead - 1}):
+            cases.append(ops().lead(p).lit(70, extra).copy(64, 40).lit(5).case(f"lit_len{extra}_at_{p}"))
+    # a copy-4 header over byte `ring`, in the batch at ring - 66: the ring
+    # holds bytes [0, ring) until then where the chunk starts 16-byte aligned
+    o = ops().lit(ring - 69).lit(8)
+    for _ in range(27):
+        o.copy(1, 4, 1)
+    cases.append(o.copy(9, 20, 3).lit(5).case("hdr_cut_by_staged_end"))
+    for n in (ring + 1000, 5 * ring):
+        cases.append(ops().lit(30).lit(n).copy(ring - 5, 64).lit(100).case(f"literal_{n}"))
+    # the second batch: a literal and a copy of it, a copy whose source
+    # ends where the batch's output starts, then copies of the tag just
+    # before each
+    cases.append(ops().lead(lookahead).lit(3).copy(3, 4, 1).copy(15, 8, 1).copy(8, 8, 1).copy(16, 16)
+                 .copy(5, 40).lit(3).case("copy_of_previous_tag"))
+    cases.append(ops().lit(5).copy(5, 4, 1).copy(10, 4, 1).lit(3).case("offset_at_and_past_output"))
+    # the second batch opens with a self-overlapping copy of the bytes
+    # before it, and the rest overlap in the batch's own output
+    o = ops().lead(lookahead)
+    for off in (1, 2, 3):
+        o.copy(off, 20)
+    cases.append(o.lit(4).case("overlap_1_3"))
+    o = ops().lead(lookahead)
+    for off in (4, 5, 6, 7):
+        o.copy(off, 30).copy(off, 11, 1)
+    cases.append(o.lit(4).case("overlap_4_7"))
+    cases.append(ops().lead(lookahead).copy(0, 10).lit(9).case("bad_at_first_lane"))
+    o = ops().lit(1)
+    for _ in range(9):
+        o.copy(1, 4, 1)
+    cases.append(o.copy(200, 9, 1).copy(1, 4, 1).lit(20).case("bad_at_lane_10"))
+    cases.append(ops().lead(lookahead - 2).copy(0, 8, 1).lit(9).case("bad_at_last_tag"))
+    o = ops().lit(1)
+    for _ in range(30):
+        o.copy(1, 4, 1)
+    cases.append(o.copy(0, 4, 1).lit(9).case("bad_at_lane_31"))
+    o = ops().lit(10)
+    for _ in range(5):
+        o.copy(10, 10)
+    cases.append(o.lit(5).case("declared_exceeded_mid_batch", 45))
+    cases.append((lambda c: (c[0], c[1][:-2], c[2]))(ops().lit(10).copy(9, 20, 3).case("truncated_copy4")))
+    o = ops().lit(10)
+    cases.append(("truncated_literal_length", bytes(o.body) + bytes([61 << 2, 30]), 10 + 31))
+    cases.append(("truncated_literal_data", bytes(o.body) + bytes([19 << 2]) + b"12345", 30))
+    # a 4-byte literal length of 2^32 - 1: 2^32 bytes, more than any W
+    cases.append(("len_2_32_literal", bytes(ops().lit(5).body) + bytes([63 << 2]) + b"\xff" * 4
+                  + literal(b"abc"), 8))
+    cases.append(("empty_declared_0", b"", 0))
+    cases.append(("empty_declared_7", b"", 7))
+    body = literal(b"q") + copy4(1, 1) * 65535
+    cases.append(("longer_than_max_compressed_len", body, 65536))
+    cases.append(ops().lit(60_000).copy(60_000, 64).lit(40_000, 3).copy(1, 64).case("declared_over_64k"))
+    return cases
+
+
+def mutation_streams(count: int, seed: int = 73) -> List[Tuple[bytes, str]]:
+    """Seeded raw streams for the decoder differential (shaped like
+    experiments/e40_hw_mutation_differential.py): payloads of 30 B to
+    200 KB, half a repeated 2-16 byte word then random bytes (every third
+    a slice of the mixed payload instead), each encoded by the host C
+    block encoder; 60% of them mutated by a bit flip, a truncation, an
+    insertion of 1-3 bytes or a duplication of up to 7 bytes.  Returns
+    (stream, kind): kind "valid" or the mutation's name."""
+    from ..ops import host_codec
+
+    rng = Rand(seed)
+    out = []
+    for k in range(count):
+        n = int(rng.ints(30, 200_000, 1)[0])
+        if k % 3 == 2:
+            p = mixed_payload(n, seed=int(rng.ints(0, 1 << 30, 1)[0]))
+        else:
+            word = rng.bytes(int(rng.ints(2, 17, 1)[0])).tobytes()
+            p = (word * (n // len(word) + 1))[: n // 2] + rng.bytes(n - n // 2).tobytes()
+        s = bytearray(varint.encode_uint32(len(p)) + b"".join(
+            host_codec.encode_block(p[q : q + FRAME]) for q in range(0, len(p), FRAME)))
+        kind = "valid"
+        if int(rng.ints(0, 10, 1)[0]) < 6:
+            kind = ("bitflip", "truncate", "insert", "duplicate")[int(rng.ints(0, 4, 1)[0])]
+            if kind == "bitflip":
+                s[int(rng.ints(0, len(s), 1)[0])] ^= 1 << int(rng.ints(0, 8, 1)[0])
+            elif kind == "truncate":
+                del s[int(rng.ints(1, len(s), 1)[0]) :]
+            elif kind == "insert":
+                q = int(rng.ints(0, len(s) + 1, 1)[0])
+                s[q:q] = rng.bytes(int(rng.ints(1, 4, 1)[0])).tobytes()
+            else:
+                lo = int(rng.ints(0, len(s) - 2, 1)[0])
+                hi = min(len(s), lo + int(rng.ints(1, 8, 1)[0]))
+                s[hi:hi] = s[lo:hi]
+        out.append((bytes(s), kind))
+    return out
+
+
+def host_raw_decode(stream: bytes) -> Optional[bytes]:
+    """The oracle of the decoder differential: the payload of a raw stream
+    by the host C decoder (``host_codec.decode_tags``), or None where the
+    stream is malformed or decodes to another length than it declares.  A
+    tag yields at most 64 bytes from 3, so a body of n bytes never decodes
+    to more than 22 n, and the output buffer is cut there."""
+    from ..ops import host_codec
+
+    declared, read = varint.decode_uint32(stream)
+    if declared is None:
+        return None
+    body = stream[read:]
+    got, written = host_codec.decode_tags(body, min(declared, 22 * len(body)))
+    return got if got is not None and written == declared else None
 
 
 def frame(cid: int, payload: bytes) -> bytes:

@@ -10,7 +10,9 @@ and the device time of one call by ``torch.profiler``.  Then the raw
 paths: ``decode`` of the payload's level-1 raw stream end to end, its
 stages where the package has K4's window route (the host window index,
 H2D, the kernels, D2H, ``tobytes``) and its device time, ``decode_batch``
-of the seeded serving batch and ``streams.sync.compress_framed``.  Then,
+of the seeded serving batch, ``decode`` of its 8 unsplittable streams of
+at most 128 KiB one call each (K2 at the big window) and
+``streams.sync.compress_framed``.  Then,
 where the package has them, ``streams.sync.uncompress_framed`` and
 ``uncompress_framed_into`` through 8 MiB buffers with re-entry, the latter
 with cProfile's top host functions.  ``--tree`` imports
@@ -175,6 +177,12 @@ def raw_paths(api, decode_stream, payload, payloads, dev, timed, device_time, ta
     serving, _ = payloads.serving_batch(lambda ps: api.encode_batch(ps, device=dev))
     best, med = timed(lambda: api.decode_batch(serving, device=dev))
     print(f"decode_batch: best {best:.2f} ms, median {med:.2f} ms {tag}")
+    first = payloads.SERVING_SMALL
+    small = serving[first : first + payloads.SERVING_STRADDLE]
+    size = sum(len(api.decode(s, device=dev)) for s in small)
+    best, med = timed(lambda: [api.decode(s, device=dev) for s in small])
+    print(f"decode (raw, <= 128 KiB): the {len(small)} unsplittable serving streams one call "
+          f"each, {size} bytes: best {best:.2f} ms, median {med:.2f} ms {tag}")
     from snappy_tpu_torch.streams import sync
 
     best, med = timed(lambda: sync.compress_framed(io.BytesIO(payload), io.BytesIO(), device=dev))
