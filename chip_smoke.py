@@ -24,7 +24,12 @@ Phases, each reported on its own lines:
               host index builds, with copies reaching earlier windows
               decoded again by its ordered pass, else the whole-stream
               walk); the GF(2) CRC (K6) on the 8 blocks; equal, or it
-              fails; then the encoder differential: at levels 1 and 2,
+              fails; then the CRC differential: K1 on 512 seeded rows of
+              0-64 KiB at every start offset and on prefixes of the payload
+              of 64 KiB + 1 up to 48 MiB as single rows equals the host C
+              CRC (host_codec.masked_crc32c), and K1 on one row of 1 MiB + 7
+              equals its plain version, or it fails; then the encoder
+              differential: at levels 1 and 2,
               K3's bytes on payloads.encoder_blocks (the named
               batch-logic cases, then blocks of every payload kind and the
               adversarial kinds at random lengths, 1,200 in all) equal the
@@ -59,7 +64,10 @@ Phases, each reported on its own lines:
               set for the call (K5), and a far-copy stream (K5, then the
               whole-stream walk of K4: one literal over the boundaries);
 7. fused CRC — crc32c_mma.masked_crc32c_chunks_fused over the 769 frames
-              of the payload, equal to K1's CRCs of the same frames;
+              of the payload, equal to K1's CRCs of the same frames; then
+              the one-shot masked_crc32c of the whole payload (K1 over
+              every SM, its tiles folded by a second launch), equal to the
+              host C CRC;
 8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
               counts set to 0 just before each path and read just after;
 9. timings  — each kernel at its main-path shape and on its small set
@@ -67,7 +75,11 @@ Phases, each reported on its own lines:
               end-to-end rates; for K4 also the host index, each pass of
               the window route alone and one whole-stream walk of the
               48 MiB stream; for K3 the host C encoder on one host thread
-              over the same 768 blocks, the same-machine control; for K2
+              over the same 768 blocks, the same-machine control, and
+              likewise the host C CRC for K1; for K1 (crc32c at 768 x
+              64 KiB, crc32c_long on the payload as one row) its registers,
+              shared memory and CTAs per SM and the A/B of its two layouts
+              (testing/crc_layouts.measure); for K2
               the registers of each shape's kernel (ptxas) and its CTAs per
               SM, and the A/B of its two layouts at both shapes
               (testing/decode_layouts.measure: the row in shared memory,
@@ -121,7 +133,10 @@ KERNELS = {
                            "snappy_tpu/ops/decode_stream.py:75", "streams"),
     "crc32c_mma": ("snappy_tpu_torch/ops/csrc/crc32c_mma.cu",
                    "snappy_tpu/ops/crc32c_mxu.py:165", "fused_crc"),
+    "crc32c_long": ("snappy_tpu_torch/ops/csrc/crc32c.cu",
+                    "snappy_tpu/ops/crc32c_pallas.py:52", "one_shot"),
 }
+CRC_DIFFERENTIAL = 32  # rows per start offset held against the host C CRC
 ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
 DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
 K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
@@ -233,6 +248,7 @@ def main() -> None:
             "decode_stream": decode_stream.LAUNCHES,
             "decode_stream_scan": decode_stream.LAUNCHES_SCAN,
             "crc32c_mma": crc32c_mma.LAUNCHES,
+            "crc32c_long": crc32c.LAUNCHES,
         }
 
     def reset_counts():
@@ -273,6 +289,49 @@ def main() -> None:
     want = crc32c._crc32c_plain(frames_h, lens_h)
     err["crc32c"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     assert torch.equal(got, want), ("crc32c", got, want)
+
+    # the CRC differential: K1 against the host C CRC, on seeded rows of
+    # 0-64 KiB at every start offset (a row stride skewed past 16 bytes
+    # moves each row's offset) and on prefixes of the payload as single rows
+    payload = payloads.mixed_payload()
+    rnd = payloads.Rand(9)
+    crc_rows, crc_bad = 0, []
+    width = 65536
+    for off in range(16):
+        stride = width + 16 + int(rnd.ints(0, 16, 1)[0])
+        buf = torch.from_numpy(rnd.bytes(CRC_DIFFERENTIAL * stride + 64)).to(dev)
+        view = buf[(-buf.data_ptr()) % 16 + off :].as_strided((CRC_DIFFERENTIAL, width), (stride, 1))
+        d_lens = rnd.ints(0, width + 1, CRC_DIFFERENTIAL)
+        d_lens[:7] = [0, 1, 15, 16, 17, 65535, 65536]
+        got_d = crc32c.masked_crc32c_chunks(view, torch.from_numpy(d_lens.astype(np.int32)).to(dev))
+        host_rows = view.cpu().numpy()
+        for r, (n, g) in enumerate(zip(d_lens.tolist(), got_d.cpu().numpy().tolist())):
+            if g != host_codec.masked_crc32c(host_rows[r, :n]):
+                crc_bad.append((off, r, n))
+        crc_rows += CRC_DIFFERENTIAL
+    payload_d = torch.from_numpy(np.frombuffer(payload, dtype=np.uint8).copy()).to(dev)
+    long_lens = [65537, 131075, (1 << 20) + 7, (8 << 20) + 5, len(payload)]
+    for n in long_lens:
+        for off in (0, 3):
+            m = min(n, len(payload) - off)
+            g = crc32c.masked_crc32c_chunks(payload_d[off : off + m].view(1, m),
+                                            torch.tensor([m], dtype=torch.int32, device=dev))
+            if int(g[0]) != host_codec.masked_crc32c(payload[off : off + m]):
+                crc_bad.append((off, None, m))
+            crc_rows += 1
+    print(f"kernels: CRC differential: crc32c equals the host C CRC on {crc_rows} rows "
+          f"({16 * CRC_DIFFERENTIAL} of 0-65536 bytes at start offsets 0-15, and payload prefixes "
+          f"of {long_lens[0]} to {len(payload)} bytes as single rows at offsets 0 and 3): "
+          f"{len(crc_bad)} mismatches {crc_bad[:8]} (tolerance: exact)")
+    assert not crc_bad, ("CRC differential", crc_bad[:8])
+    mid = (1 << 20) + 7  # K1 on one row of several tiles against its plain version
+    mid_row = payload_d[3 : 3 + mid].view(1, mid)
+    mid_len = torch.tensor([mid], dtype=torch.int32, device=dev)
+    mid_row_h, mid_len_h = mid_row.cpu(), mid_len.cpu()
+    got = crc32c.masked_crc32c_chunks(mid_row, mid_len).cpu()
+    want = crc32c._crc32c_plain(mid_row_h, mid_len_h)
+    err["crc32c_long"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    assert torch.equal(got, want), ("crc32c on one row of several tiles", got, want)
 
     streams = {}
     for name, level in (("encode_blocks", 1), ("encode_blocks_l2", 2)):
@@ -328,7 +387,7 @@ def main() -> None:
     st_dev = []  # (comp, declared, out, in_offs or None) on the card, per case
     st_redecoded = []  # windows pass 2 decoded per case (None: the walk)
     s_err = 0
-    for body, m, payload in st_cases + win_cases:
+    for body, m, case_payload in st_cases + win_cases:
         comp_d = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()).to(dev)
         out_d = torch.zeros(max(m, 1), dtype=torch.uint8, device=dev)
         offs = decode_stream.window_index(body, m) if m > 0 else None
@@ -348,8 +407,8 @@ def main() -> None:
         w = status[1]
         d = (out_d[:w].cpu().to(torch.int32) - pout_s[:w].to(torch.int32)).abs()
         s_err = max(s_err, int(d.max()) if w else 0)
-        if payload is not None:
-            assert status == [1, m, len(body)] and out_d[:m].cpu().numpy().tobytes() == payload
+        if case_payload is not None:
+            assert status == [1, m, len(body)] and out_d[:m].cpu().numpy().tobytes() == case_payload
         st_dev.append((comp_d, m, out_d, offs_d))
     err["decode_stream"] = s_err
     assert s_err == 0, "decode_stream bytes differ from the plain version"
@@ -468,7 +527,6 @@ def main() -> None:
           f"{len(sc_cases)} stream cases (verdicts {sorted(verdicts)}) (tolerance: exact)")
 
     # 4. framed main path ----------------------------------------------------
-    payload = payloads.mixed_payload()
     reset_counts()
     stream = api.encode_framed(payload, device=dev)
     decoded = api.decode_framed(stream, device=dev)
@@ -676,9 +734,18 @@ def main() -> None:
     assert torch.equal(fused.cpu(), by_k1.cpu()), "crc32c_mma differs from crc32c on the frames"
     print(f"fused CRC: crc32c_mma equals crc32c on the {len(all_lens)} frames of the payload")
 
+    # the one-shot masked_crc32c of the whole payload: K1 over every SM
+    payload_crc = host_codec.masked_crc32c(payload)
+    reset_counts()
+    one_shot = engine.masked_crc32c(payload, device=dev)
+    one_shot_launches = counts()
+    assert one_shot == payload_crc, ("one-shot masked_crc32c", one_shot, payload_crc)
+    print(f"one-shot CRC: masked_crc32c of the {len(payload)}-byte payload equals the host C CRC")
+
     # 8. counters ------------------------------------------------------------
     path_launches = {"framed": framed_launches, "raw": raw_launches,
-                     "streams": stream_launches, "fused_crc": fused_launches}
+                     "streams": stream_launches, "fused_crc": fused_launches,
+                     "one_shot": one_shot_launches}
     for name, got_c in path_launches.items():
         print(f"counters: {name} path {got_c}")
     print(f"counters: decode of the 48 MiB stream (K4 window route, K4 walk, windows decoded "
@@ -691,6 +758,7 @@ def main() -> None:
     for name in ("decode_stream_scan", "crc32c", "decode_chunks", "encode_blocks"):
         assert stream_launches[name] > 0, f"the stream layer never launched {name}"
     assert fused_launches["crc32c_mma"] > 0, "the fused CRC path never launched crc32c_mma"
+    assert one_shot_launches["crc32c"] == 1, ("the one-shot CRC's launches of crc32c", one_shot_launches)
     launches = {name: path_launches[p][name] for name, (_, _, p) in KERNELS.items()}
 
     # 9. timings -------------------------------------------------------------
@@ -699,6 +767,10 @@ def main() -> None:
     big = torch.from_numpy(arr.copy()).view(nf, 65536).to(dev)
     big_lens = torch.full((nf,), 65536, dtype=torch.int32, device=dev)
     crc_out = torch.empty(nf, dtype=torch.uint32, device=dev)
+    long_row, long_nt = payload_d.view(1, -1), crc32c.tiles_per_row(len(payload))
+    long_len = torch.tensor([len(payload)], dtype=torch.int32, device=dev)
+    long_out = torch.empty(1, dtype=torch.uint32, device=dev)
+    mid_out = torch.empty(1, dtype=torch.uint32, device=dev)
     big_enc = torch.empty((nf, encode_blocks.ENC_CAP), dtype=torch.uint8, device=dev)
     big_elen = torch.empty(nf, dtype=torch.int32, device=dev)
     encode_blocks._launch(big, big_lens, big_enc, big_elen)
@@ -821,13 +893,20 @@ def main() -> None:
               f"for the {nf} x 64 KiB blocks ({nf * 65536 / host_s / 1e9:.3f} GB/s), the same bytes "
               f"as encode_blocks {tag}")
     del kernel_out, big_enc_l2
+    crc32c._launch(big, big_lens, crc_out, 1)
+    t = time.perf_counter()
+    host_crcs = [host_codec.masked_crc32c(v) for v in views]
+    host_s = time.perf_counter() - t
+    assert host_crcs == crc_out.cpu().numpy().tolist(), "host C CRC control"
+    print(f"timing: host C CRC (control), one host thread: {host_s * 1e3:.3f} ms for the {nf} x "
+          f"64 KiB blocks ({nf * 65536 / host_s / 1e9:.3f} GB/s), the same CRCs as crc32c {tag}")
     timing = {
         # name: (main-path shape, its description, bytes out, reps,
         #        kernel on the small set, plain on the small set, small set,
         #        bytes the main-path call moves, its int8 operations)
-        "crc32c": (lambda: crc32c._launch(big, big_lens, crc_out),
+        "crc32c": (lambda: crc32c._launch(big, big_lens, crc_out, 1),
                    f"{nf} x 64 KiB chunks", nf * 65536, 10,
-                   lambda: crc32c._launch(frames, lens, s_out),
+                   lambda: crc32c._launch(frames, lens, s_out, 1),
                    lambda: crc32c._crc32c_plain(frames_h, lens_h), "8 chunks",
                    nf * 65536 + 8 * nf, 0),
         "encode_blocks": (lambda: encode_blocks._launch(big, big_lens, big_enc, big_elen),
@@ -867,6 +946,12 @@ def main() -> None:
                        lambda: crc32c_mma._launch(frames, lens, s_fused),
                        lambda: crc32c_mma._crc32c_mma_plain(frames_h, lens_h), "8 chunks",
                        nf * 65536 + 8 * nf + 4 * len(crc32c_mma.consts()), 2 * nf * 65536 * 8 * 32),
+        "crc32c_long": (lambda: crc32c._launch(long_row, long_len, long_out, long_nt),
+                        f"the {len(payload)}-byte payload as one row ({long_nt} tiles)",
+                        len(payload), 10,
+                        lambda: crc32c._launch(mid_row, mid_len, mid_out, crc32c.tiles_per_row(mid)),
+                        lambda: crc32c._crc32c_plain(mid_row_h, mid_len_h), f"one row of {mid} bytes",
+                        len(payload) + 4 + 4, 0),
     }
     rows = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -902,7 +987,25 @@ def main() -> None:
                   f"registers, {row['ctas_per_sm']} CTAs per SM; the A/B (a, b, b, a): layout a "
                   f"{times['a'][0]:.4f} / {times['a'][1]:.4f} ms, layout b {times['b'][0]:.4f} / "
                   f"{times['b'][1]:.4f} ms {tag}")
+    # K1: registers, shared memory and CTAs per SM, and both layouts
+    from snappy_tpu_torch.testing import crc_layouts
+
+    k1 = crc_layouts.kernel_params(_build.cuda_lib())
+    k1_regs = crc_layouts.registers(_build.cuda_build_log())["i"]
+    k1_layouts = crc_layouts.measure(reps=10)
+    for row in rows:
+        if row["name"] in ("crc32c", "crc32c_long"):
+            times = k1_layouts["chunks" if row["name"] == "crc32c" else "long"]["ms"]
+            row.update({"layout": "i", "registers": k1_regs, "ctas_per_sm": k1["ctas_per_sm"],
+                        "smem_bytes": k1["smem_bytes"], "table_bytes": k1["table_bytes"],
+                        "layouts_ms": times})
+            print(f"timing: {row['name']} layout (i): {k1_regs} registers, {k1['smem_bytes']} bytes "
+                  f"of shared memory a CTA ({k1['table_bytes']} of per-bank tables), "
+                  f"{k1['ctas_per_sm']} CTAs per SM of {32 * k1['warps']} threads; the A/B (i, ii, "
+                  f"ii, i): layout (i) {times['i'][0]:.4f} / {times['i'][1]:.4f} ms, layout (ii) "
+                  f"{times['ii'][0]:.4f} / {times['ii'][1]:.4f} ms {tag}")
     torch.cuda.synchronize()
+    assert int(long_out[0]) == payload_crc, "crc32c on the payload as one row"
     payload_t = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
     assert r_status.tolist() == [1, len(payload), len(r_body), 0] and torch.equal(r_out.cpu(), payload_t), \
         ("window route decode of the 48 MiB stream", r_status.tolist())
@@ -933,6 +1036,7 @@ def main() -> None:
         ("sync uncompress_framed", sync_uncompress, len(payload), 3),
         ("uncompress_framed_into 8 MiB", lambda: resume_into(stream, 8 << 20), len(payload), 3),
         ("decode (scan mode)", scan_decode, len(payload), 1),
+        ("masked_crc32c", lambda: engine.masked_crc32c(payload, device=dev), len(payload), 3),
     ):
         best, med = e2e(fn, reps)
         print(f"timing: {name} {nbytes} bytes: best {best * 1e3:.2f} ms "

@@ -45,7 +45,7 @@ _I64 = ctypes.c_int64
 # C entry points and their arguments (pointers and the stream as c_void_p).
 # The twin takes the same arguments without the trailing stream.
 _ENTRY_POINTS: Dict[str, List] = {
-    "crc32c_chunks": [_P, _I64, _P, _I, _P, _P, _P, _P],
+    "crc32c_chunks": [_P, _I64, _P, _I, _I64, _P, _P, _P, _P, _P],
     "crc32c_mma": [_P, _P, _I, _P, _P, _P],
     "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "decode_stream": [_P, _I64, _I64, _P, _P, _P],
@@ -140,11 +140,15 @@ def cuda_build_log() -> str:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the entry point ``stpu_<name>`` with ``args`` and the current
-    stream of ``device``; raise if it reports a CUDA error (a refused launch
+    stream of ``device``, with ``device`` made current where it is not;
+    raise if it reports a CUDA error (a refused launch
     never runs, and a later synchronize would not say so)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(cuda_lib(), "stpu_" + name)(*args, stream)
+    fn = getattr(cuda_lib(), "stpu_" + name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel: CUDA error {rc} at launch")
 

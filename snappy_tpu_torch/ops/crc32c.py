@@ -3,7 +3,11 @@
 JAX counterpart: snappy_tpu/ops/crc32c_pallas.py (the TPU kernel
 ``_kernel_factory``, launched by ``_lane_fold_pallas``) and its XLA twin
 ``snappy_tpu/ops/crc32c_jax.masked_crc32c_chunks``, which the JAX main path
-calls.  One CUDA kernel, ``csrc/crc32c.cu``, replaces both.
+calls.  One CUDA source, ``csrc/crc32c.cu``, replaces both: a tile
+kernel on a persistent grid (every row cut into tiles of 64 KiB, one CTA of
+16 warps a tile, lanes on coalesced 16-byte loads, conflict-free table
+lookups, warp-level folds) and, where a row is longer than one tile, a fold
+kernel over its tiles.  Both launches of one call count as one launch.
 
 ``masked_crc32c_chunks`` launches the kernel for a CUDA tensor and runs the
 plain version ``_crc32c_plain`` for a CPU tensor.  The kernel reads only
@@ -25,6 +29,8 @@ POLY = 0x82F63B78  # reflected CRC32C polynomial (crc32c_jax.py:31)
 MASK_DELTA = 0xA282EAD8  # snappy masking constant (crc32c_jax.py:32)
 
 LAUNCHES = 0  # kernel launches made by masked_crc32c_chunks
+
+TILE = 65536  # bytes of a tile (kTile of csrc/crc32c.cu)
 
 _consts: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -67,12 +73,33 @@ def shift_matrices() -> np.ndarray:
     return np.array(mats, dtype=np.uint32)
 
 
+@functools.cache
+def adv_tables() -> np.ndarray:
+    """uint32 [32, 4, 256]: entry [j, p, b] advances the register b << 8p
+    across 2^j zero bytes, so that advancing v is the XOR over its 4 bytes."""
+    cols = shift_matrices().astype(np.uint32)  # [32 levels, 32 columns]
+    b = np.arange(256, dtype=np.uint32)
+    out = np.zeros((32, 4, 256), dtype=np.uint32)
+    for p in range(4):
+        for bit in range(8):
+            on = ((b >> bit) & 1).astype(bool)
+            out[:, p, on] ^= cols[:, 8 * p + bit, None]
+    return out
+
+
+def tiles_per_row(max_len: int) -> int:
+    """Tile slots of each row in a call whose longest row has max_len
+    bytes (nt_max of csrc/crc32c.cu)."""
+    return max(1, -(-max_len // TILE))
+
+
 def mask(crc: int) -> int:
     """Snappy CRC masking (framing_format.txt:39-58)."""
     return (((crc >> 15) | (crc << 17)) + MASK_DELTA) & 0xFFFFFFFF
 
 
-def _check(chunks_u8: torch.Tensor, lengths: torch.Tensor) -> None:
+def _check(chunks_u8: torch.Tensor, lengths: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; return the longest length."""
     if chunks_u8.dtype != torch.uint8 or chunks_u8.dim() != 2:
         raise TypeError("chunks_u8 must be a uint8 tensor [N, W]")
     if chunks_u8.shape[0] and chunks_u8.stride(1) != 1:
@@ -81,10 +108,12 @@ def _check(chunks_u8: torch.Tensor, lengths: torch.Tensor) -> None:
         raise TypeError("lengths must be an int32 tensor [N]")
     if lengths.device != chunks_u8.device or not lengths.is_contiguous():
         raise ValueError("lengths must be contiguous, on the chunks' device")
-    if len(lengths) and (
-        int(lengths.min()) < 0 or int(lengths.max()) > chunks_u8.shape[1]
-    ):
+    if not len(lengths):
+        return 0
+    lo, hi = (int(v) for v in torch.aminmax(lengths))
+    if lo < 0 or hi > chunks_u8.shape[1]:
         raise ValueError("lengths must lie in [0, W]")
+    return hi
 
 
 def masked_crc32c_chunks(
@@ -94,7 +123,7 @@ def masked_crc32c_chunks(
 
     chunks_u8: uint8 [N, W]; lengths: int32 [N].  Returns uint32 [N] on the
     same device."""
-    _check(chunks_u8, lengths)
+    max_len = _check(chunks_u8, lengths)
     dev = chunks_u8.device
     if dev.type == "cpu":
         return _crc32c_plain(chunks_u8, lengths)
@@ -102,23 +131,29 @@ def masked_crc32c_chunks(
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(len(lengths), dtype=torch.uint32, device=dev)
     if len(lengths):
-        _launch(chunks_u8, lengths, out)
+        _launch(chunks_u8, lengths, out, tiles_per_row(max_len))
     return out
 
 
-def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the kernel on checked CUDA tensors (N >= 1), no checks."""
+def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
+            nt_max: int) -> None:
+    """Launch the kernels on checked CUDA tensors (N >= 1), no checks;
+    ``nt_max``: ``tiles_per_row`` of the longest row."""
     dev = chunks_u8.device
     if dev not in _consts:
         _consts[dev] = (
             torch.from_numpy(tables()).to(dev),
-            torch.from_numpy(shift_matrices()).to(dev),
+            torch.from_numpy(adv_tables()).to(dev),
         )
-    tabs, mats = _consts[dev]
+    tabs, adv = _consts[dev]
+    # scratch for the fold of rows longer than a tile; no kernel touches it
+    # at nt_max 1, so no allocation is made there
+    tile_regs = torch.empty(len(lengths) * nt_max, dtype=torch.int32, device=dev) if nt_max > 1 \
+        else out
     _build.launch(
         "crc32c_chunks", dev,
-        chunks_u8.data_ptr(), chunks_u8.stride(0), lengths.data_ptr(),
-        len(lengths), tabs.data_ptr(), mats.data_ptr(), out.data_ptr(),
+        chunks_u8.data_ptr(), chunks_u8.stride(0), lengths.data_ptr(), len(lengths), nt_max,
+        tabs.data_ptr(), adv.data_ptr(), tile_regs.data_ptr(), out.data_ptr(),
     )
     global LAUNCHES
     LAUNCHES += 1

@@ -1,5 +1,6 @@
 """The native host runtime: the raw tag-stream block scan, the framed
-header scan, the host C block encoder and the host C tag decoder.
+header scan, the host C block encoder, the host C tag decoder and the host C
+masked CRC32C.
 
 JAX counterpart: snappy_tpu/ops/host_codec.py (its build,
 ``scan_raw_blocks`` with the parallel ``_scan_blocks``,
@@ -55,6 +56,7 @@ _ARGS = {
     "stpu_encode_block": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
     "stpu_encode_block_l2": (ctypes.c_uint32, [_P, ctypes.c_uint32, _P, _P]),
     "stpu_decode_tags": (ctypes.c_int, [_P, ctypes.c_size_t, _P, ctypes.c_size_t, _P]),
+    "snappy_tpu_masked_crc32c": (ctypes.c_uint32, [_P, ctypes.c_size_t]),
 }
 
 
@@ -150,6 +152,13 @@ def decode_tags(body, out_len: int) -> Tuple[Optional[bytes], int]:
     if rc != 0:
         return None, 0
     return out[: written.value].tobytes(), written.value
+
+
+def masked_crc32c(data) -> int:
+    """The host C masked CRC32C (``snappy_tpu_masked_crc32c``) of any
+    buffer: the value that the CRC kernel (K1) must give for it."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    return int(lib().snappy_tpu_masked_crc32c(src.ctypes.data if len(src) else None, len(src)))
 
 
 def scan_raw_blocks(body: bytes, declared: int) -> Optional[np.ndarray]:

@@ -99,18 +99,21 @@ def twin():
 
 @pytest.mark.parametrize("width,offset", [(65536, 0), (1024, 1), (300_000, 3)])
 def test_twin_matches_plain(twin, width, offset):
-    """The kernel source, compiled by g++: the per-thread segments, the
-    GF(2) tree fold and the mask.  Rows start at unaligned addresses when
-    offset > 0, and bytes past each length are garbage the kernel must not
-    read into the CRC."""
+    """The kernel source, compiled by g++: the tiles, the lanes' registers,
+    the folds of lanes, warps and tiles, the head and tail bytes and the
+    mask.  Rows start at unaligned addresses when offset > 0, and bytes past
+    each length are garbage the kernel must not read into the CRC."""
     lengths = sorted({0, 1, 3, 4, 5, 255, 256, 257, 4097, width // 2 + 1, width - 1, width})
     lengths = [n for n in lengths if n <= width]
     rows, lens = _chunks(lengths, width + offset, seed=width, garbage=True)
     rows = rows[:, offset:]
+    nt_max = crc32c.tiles_per_row(width)
     out = np.zeros(len(lengths), dtype=np.uint32)
+    tile_regs = np.zeros(len(lengths) * nt_max, dtype=np.uint32)
     rc = twin.stpu_twin_crc32c_chunks(
-        rows.ctypes.data, rows.strides[0], lens.ctypes.data, len(lengths),
-        crc32c.tables().ctypes.data, crc32c.shift_matrices().ctypes.data, out.ctypes.data,
+        rows.ctypes.data, rows.strides[0], lens.ctypes.data, len(lengths), nt_max,
+        crc32c.tables().ctypes.data, crc32c.adv_tables().ctypes.data, tile_regs.ctypes.data,
+        out.ctypes.data,
     )
     assert rc == 0
     want = crc32c._crc32c_plain(torch.from_numpy(np.ascontiguousarray(rows)), torch.from_numpy(lens))
