@@ -23,7 +23,16 @@ Phases, each reported on its own lines:
               decode_raw_stream_bytes takes (the window route where the
               host index builds, with copies reaching earlier windows
               decoded again by its ordered pass, else the whole-stream
-              walk); the GF(2) CRC (K6) on the 8 blocks; equal, or it
+              walk); K5 also on window_cases, scan_differential_cases,
+              scan_window_cases (ragged steps, resyncs after walked
+              windows, the MARGIN stop, the history limit inside a
+              window, a bad tag after a walked window, a declared length
+              past the stream and of 0) and on scan_forced_index_cases'
+              indices, on both of its routes (pass 2 alone, and K2 over
+              the windows then pass 2 where an index exists): the 16 state
+              words, every step's length and the bytes equal its plain
+              scan, and the steps walked by pass 2 are as expected; the
+              GF(2) CRC (K6) on the 8 blocks; equal, or it
               fails; then the CRC differential: K1 on 512 seeded rows of
               0-64 KiB at every start offset and on prefixes of the payload
               of 64 KiB + 1 up to 48 MiB as single rows equals the host C
@@ -59,10 +68,14 @@ Phases, each reported on its own lines:
               framed-L1 and raw-L1 digests, and back to the payload);
               uncompress_framed_into through 1 MiB and 8 MiB buffers with
               re-entry, and payloads.framed_vectors against their pinned
-              results; cli.main in a temporary directory: framed L1 and
-              L2 round trips, then `-d --raw` with SNAPPY_TPU_STREAM_MODE=scan
-              set for the call (K5), and a far-copy stream (K5, then the
-              whole-stream walk of K4: one literal over the boundaries);
+              results; decode_raw_stream_bytes of the level-1 stream in
+              scan mode (K5's window route: K2 over the windows and one
+              pass-2 launch, no step walked); cli.main in a temporary
+              directory: framed L1 and L2 round trips, then `-d --raw`
+              with SNAPPY_TPU_STREAM_MODE=scan set for the call (K5 on its
+              window route, no step walked), and a far-copy stream (K5
+              without an index, then the whole-stream walk of K4: one
+              literal over the boundaries);
 7. fused CRC — crc32c_mma.masked_crc32c_chunks_fused over the 769 frames
               of the payload, equal to K1's CRCs of the same frames; then
               the one-shot masked_crc32c of the whole payload (K1 over
@@ -70,11 +83,15 @@ Phases, each reported on its own lines:
               host C CRC;
 8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
               counts set to 0 just before each path and read just after;
+              for scan mode, K5's pass-2 and pass-1 launches, K4's
+              launches after `unsupported` and the steps pass 2 walked;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
               the window route alone and one whole-stream walk of the
-              48 MiB stream; for K3 the host C encoder on one host thread
+              48 MiB stream; for K5 each pass of its window route alone
+              (pass 1 is K2 over the windows) and its route without an
+              index once (every step walked); for K3 the host C encoder on one host thread
               over the same 768 blocks, the same-machine control, and
               likewise the host C CRC for K1; for K1 (crc32c at 768 x
               64 KiB, crc32c_long on the payload as one row) its registers,
@@ -256,9 +273,14 @@ def main() -> None:
         encode_blocks.LAUNCHES = encode_blocks.LAUNCHES_L2 = decode_stream.LAUNCHES = 0
         decode_stream.LAUNCHES_SCAN = crc32c_mma.LAUNCHES = 0
         decode_stream.LAUNCHES_WINDOWS = decode_stream.LAUNCHES_WALK = decode_stream.REDECODED = 0
+        decode_stream.LAUNCHES_SCAN_WINDOWS = decode_stream.WALKED = 0
 
     def routes():
         return (decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK, decode_stream.REDECODED)
+
+    def scan_routes():
+        return (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES_SCAN_WINDOWS,
+                decode_stream.LAUNCHES_WALK, decode_stream.LAUNCHES_WINDOWS, decode_stream.WALKED)
 
     dev = torch.device("cuda:0")
     card = card_label()
@@ -419,28 +441,60 @@ def main() -> None:
     assert all(r is not None for r in w_red[5:15]), w_red
     n_win = sum(r is not None for r in st_redecoded)
 
-    sc_cases = [(b, m) for b, m, _ in st_cases + payloads.scan_edge_cases()]
-    sc_dev = []  # (comp on the card, comp on the host, declared, out on the card)
-    sc_err, verdicts = 0, set()
-    for body, m in sc_cases:
+    # K5 on both of its routes: pass 2 alone (no index), and K2 over the
+    # windows then pass 2 where the host index builds; the forced-index cases
+    # on the indices that payloads gives them
+    sw_cases = payloads.scan_window_cases()
+    sc_cases = [(b, m) for b, m, _ in st_cases + payloads.scan_edge_cases() + win_cases
+                + payloads.scan_differential_cases() + sw_cases]
+    forced = payloads.scan_forced_index_cases()
+    sc_dev = []  # (comp on the card, comp on the host, declared, out, index on the card, on the host)
+    sc_err, verdicts, sc_walked = 0, set(), []
+    for i, (body, m) in enumerate(sc_cases + [(b, m) for b, m, _ in forced]):
         comp_h = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy())
         comp_d = comp_h.to(dev)
-        out_d = torch.zeros(max(m, 1), dtype=torch.uint8, device=dev)
-        state, wr = decode_stream.decode_stream_scan(comp_d, m, out_d)
         pout = torch.zeros(max(m, 1), dtype=torch.uint8)
         pstate, pwr = decode_stream.decode_stream_scan(comp_h, m, pout)
-        assert torch.equal(state.cpu(), pstate) and torch.equal(wr.cpu(), pwr), \
-            ("decode_stream_scan state", len(body), m, state.cpu().tolist(), pstate.tolist())
         w = int(pstate[decode_stream.S_WRITTEN])
-        d = (out_d[:w].cpu().to(torch.int32) - pout[:w].to(torch.int32)).abs()
-        sc_err = max(sc_err, int(d.max()) if w else 0)
+        offs = decode_stream.window_index(body, m) if m > 0 else None
+        if i >= len(sc_cases):
+            offs = torch.from_numpy(forced[i - len(sc_cases)][2])
+        walked = []
+        for offs_h in (None, offs) if offs is not None else (None,):
+            nwin = 0 if offs_h is None else offs_h.shape[0] - 1
+            offs_d = None if offs_h is None else offs_h.to(dev)
+            out_d = torch.zeros(max(m, nwin * 65536, 1), dtype=torch.uint8, device=dev)
+            state_d = torch.empty(decode_stream.STATE_WORDS + 1, dtype=torch.int64, device=dev)
+            before = decode_stream.LAUNCHES_SCAN_WINDOWS
+            state, wr = decode_stream.decode_stream_scan(
+                comp_d, m, out_d, offs_d, state_d, None if offs_h is None else offs_h.numpy())
+            assert decode_stream.LAUNCHES_SCAN_WINDOWS - before == (offs_h is not None), "K5 route"
+            assert torch.equal(state.cpu(), pstate) and torch.equal(wr.cpu(), pwr), \
+                ("decode_stream_scan state", len(body), m, nwin, state.cpu().tolist(), pstate.tolist())
+            d = (out_d[:w].cpu().to(torch.int32) - pout[:w].to(torch.int32)).abs()
+            sc_err = max(sc_err, int(d.max()) if w else 0)
+            walked.append(int(state_d[decode_stream.S_WALKED]))
         ok, _, unsup, _, _ = decode_stream.scan_status(pstate.tolist(), len(body), m)
         verdicts.add("ok" if ok else "unsupported" if unsup else "invalid")
-        sc_dev.append((comp_d, comp_h, m, out_d))
+        sc_walked.append(walked)
+        if i < len(sc_cases):
+            sc_dev.append((comp_d, comp_h, m, out_d, offs_d, None if offs is None else offs.numpy()))
     err["decode_stream_scan"] = sc_err
     assert sc_err == 0, "decode_stream_scan bytes differ from the plain version"
     assert verdicts == {"ok", "invalid", "unsupported"}, verdicts
-
+    # walked steps on the window route: none for the block-encoded window
+    # cases, every step of the ragged stream, one to three for the streams
+    # whose windows copy from the window before or stop at the MARGIN; of
+    # the forced indices, none for the declared-long case, three where a
+    # copy is pending at a window's start, two where the first window does
+    # not start at input 0
+    sw_walked = sc_walked[len(sc_cases) - len(sw_cases) : len(sc_cases)]
+    w_walked = sc_walked[len(st_cases) + 6 : len(st_cases) + 6 + len(win_cases)]
+    assert [w[1] for w in w_walked[:3]] == [0, 0, 0], w_walked
+    assert sw_walked[0][1] == sw_walked[0][0] > 4, sw_walked
+    assert [w[1] for w in sw_walked[1:7]] == [1, 1, 1, 2, 3, 3], sw_walked
+    assert [w[1] for w in sc_walked[len(sc_cases):]] == [0, 3, 2], sc_walked[len(sc_cases):]
+    n_sc_win = sum(len(w) == 2 for w in sc_walked)
     got = crc32c_mma.masked_crc32c_chunks_fused(frames, lens).cpu()
     want = crc32c_mma._crc32c_mma_plain(frames_h, lens_h)
     err["crc32c_mma"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -524,7 +578,9 @@ def main() -> None:
           f"cases; decode_stream on {len(st_dev)} stream and window cases ({n_win} on the window "
           f"route, {sum(r or 0 for r in st_redecoded)} windows decoded again by its ordered pass, "
           f"{len(st_dev) - n_win} on the whole-stream walk) and decode_stream_scan on "
-          f"{len(sc_cases)} stream cases (verdicts {sorted(verdicts)}) (tolerance: exact)")
+          f"{len(sc_cases) + len(forced)} stream cases without an index and {n_sc_win} on the window route "
+          f"(steps walked by pass 2, without / with the index: {sc_walked}; verdicts "
+          f"{sorted(verdicts)}) (tolerance: exact)")
 
     # 4. framed main path ----------------------------------------------------
     reset_counts()
@@ -652,6 +708,10 @@ def main() -> None:
 
     far_body, far_m, far_payload = payloads.scan_edge_cases()[1]
     reset_counts()
+    before = scan_routes()
+    scan_raw = decode_stream.decode_raw_stream_bytes(payloads.body_of(raw1), len(payload), mode="scan",
+                                                     device=dev)
+    scan_raw_route = tuple(a - b for a, b in zip(scan_routes(), before))
     dst = io.BytesIO()
     sync.compress_framed(io.BytesIO(payload), dst, device=dev)
     sync_framed = dst.getvalue()
@@ -687,16 +747,14 @@ def main() -> None:
         cli_launches = {}
         with stream_mode("scan"):
             for name in ("raw", "far"):
-                before = (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES_WALK,
-                          decode_stream.LAUNCHES_WINDOWS)
+                before = scan_routes()
                 assert cli.main(["-d", "--raw", "-o", path(f"{name}.out"), path(f"{name}.rawsz")]) == 0
-                cli_launches[name] = (decode_stream.LAUNCHES_SCAN - before[0],
-                                      decode_stream.LAUNCHES_WALK - before[1],
-                                      decode_stream.LAUNCHES_WINDOWS - before[2])
+                cli_launches[name] = tuple(a - b for a, b in zip(scan_routes(), before))
         for name in ("l1.sz", "l1.out", "l2.sz", "l2.out", "raw.out", "far.out"):
             with open(path(name), "rb") as f:
                 cli_out[name] = f.read()
     stream_launches = counts()
+    stream_scan = scan_routes()
 
     for name, got_s, pinned in (("sync compress_framed", sync_framed, payloads.GOLDEN_SHA256),
                                 ("aio compress_framed", aio_framed, payloads.GOLDEN_SHA256),
@@ -715,15 +773,22 @@ def main() -> None:
         assert sum(r for r, _ in steps) == len(stream) and len(steps) >= len(payload) // size
     for name, got_v, expected in vectors:
         assert got_v[: len(expected)] == expected, (name, got_v, expected)
-    assert cli_launches["raw"][0] > 0 and cli_launches["raw"][1:] == (0, 0), cli_launches
-    assert cli_launches["far"][0] > 0 and cli_launches["far"][1:] == (1, 0), cli_launches
+    # the 48 MiB level-1 stream in scan mode: K2 over its windows and one
+    # pass-2 launch, no step walked; the far-copy stream has no index (one
+    # literal over the boundaries): pass 2 alone walks it, then K4's walk
+    assert scan_raw == (payload, "ok"), "decode_raw_stream_bytes in scan mode"
+    assert scan_raw_route == (1, 1, 0, 0, 0), ("scan-mode decode of the 48 MiB stream", scan_raw_route)
+    assert cli_launches["raw"] == (1, 1, 0, 0, 0), cli_launches
+    assert cli_launches["far"][:4] == (1, 0, 1, 0) and cli_launches["far"][4] > 0, cli_launches
     print(f"streams: sync and aio compress_framed / compress of the payload equal the pinned "
           f"framed-L1 / raw-L1 digests and uncompress_framed returns the payload; "
           f"uncompress_framed_into re-entered {len(into[1 << 20][0])} times through 1 MiB and "
           f"{len(into[8 << 20][0])} through 8 MiB buffers returns the payload; {len(vectors)} "
           f"framed vectors give their pinned results; cli framed L1 / L2 round trips match the "
-          f"digests; cli -d --raw in scan mode launched (K5, K4 walk, K4 windows) {cli_launches['raw']} times, "
-          f"and on a far-copy stream {cli_launches['far']}")
+          f"digests; decode_raw_stream_bytes in scan mode returns the payload (K5 pass-2 launches, "
+          f"K5 pass-1 launches of K2, K4 walks, K4 window routes, steps walked by pass 2: "
+          f"{scan_raw_route}); cli -d --raw in scan mode {cli_launches['raw']}, and on a far-copy "
+          f"stream {cli_launches['far']}")
 
     # 7. the fused CRC --------------------------------------------------------
     all_frames, all_lens = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
@@ -750,6 +815,11 @@ def main() -> None:
         print(f"counters: {name} path {got_c}")
     print(f"counters: decode of the 48 MiB stream (K4 window route, K4 walk, windows decoded "
           f"again) {decode_route}")
+    print(f"counters: the stream path's scan mode (K5 pass-2 launches, K5 pass-1 launches of K2, "
+          f"K4 walks, K4 window routes, steps walked by pass 2) {stream_scan}: the 48 MiB stream "
+          f"{scan_raw_route}, cli -d --raw {cli_launches['raw']}, the far-copy stream {cli_launches['far']}")
+    assert stream_scan == tuple(a + b + c for a, b, c in zip(scan_raw_route, cli_launches["raw"],
+                                                             cli_launches["far"])), stream_scan
     for name in ("crc32c", "decode_chunks", "encode_blocks"):
         assert framed_launches[name] > 0, f"the framed main path never launched {name}"
     for name in ("encode_blocks_l2", "decode_chunks_big", "decode_stream", "crc32c",
@@ -813,20 +883,29 @@ def main() -> None:
     r_rec = torch.empty(3 * r_nwin, dtype=torch.int64, device=dev)
     r_walk_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
     r_walk_status = torch.empty(4, dtype=torch.int64, device=dev)
-    r_out_scan = torch.empty(len(payload), dtype=torch.uint8, device=dev)
-    scan_result = {}
+    # K5 on the same stream: its window route (K2 over the windows, pass 2)
+    r_out_scan = torch.empty(r_nwin * 65536, dtype=torch.uint8, device=dev)
+    r_steps = decode_stream.n_steps(len(r_body), len(payload))
+    r_state = torch.empty(decode_stream.STATE_WORDS + 1, dtype=torch.int64, device=dev)
+    r_writtens = torch.empty(r_steps, dtype=torch.int64, device=dev)
+    r_win = (r_offs, torch.from_numpy(decode_stream.window_lengths(len(payload))).to(dev),
+             torch.empty(r_nwin, dtype=torch.bool, device=dev),
+             torch.empty(r_nwin, dtype=torch.int32, device=dev))
+    r_walk_scan_out = torch.empty(len(payload), dtype=torch.uint8, device=dev)
+    r_walk_state = torch.empty(decode_stream.STATE_WORDS + 1, dtype=torch.int64, device=dev)
+    r_walk_writtens = torch.empty(r_steps, dtype=torch.int64, device=dev)
     fused_out = torch.empty(nf, dtype=torch.uint32, device=dev)
     s_fused = torch.empty(len(blocks), dtype=torch.uint32, device=dev)
 
-    def scan_main():
-        scan_result["state"], _ = decode_stream.decode_stream_scan(r_comp, len(payload), r_out_scan)
+    def scan_main(passes: int = 3):
+        decode_stream._launch_scan(r_comp, len(payload), r_out_scan, r_state, r_writtens, r_win, passes)
 
-    def scan_set_kernel():
-        for comp_d, _, m, out_d in sc_dev:
-            decode_stream.decode_stream_scan(comp_d, m, out_d)
+    def scan_set_kernel():  # each case on its route, as decode_raw_stream_bytes takes it
+        for comp_d, _, m, out_d, offs_d, offs_h in sc_dev:
+            decode_stream.decode_stream_scan(comp_d, m, out_d, offs_d, None, offs_h)
 
     def scan_set_plain():
-        for _, comp_h, m, _ in sc_dev:
+        for _, comp_h, m, _, _, _ in sc_dev:
             decode_stream.decode_stream_scan(comp_h, m, torch.empty(max(m, 1), dtype=torch.uint8))
 
     s_out = torch.empty(len(blocks), dtype=torch.uint32, device=dev)
@@ -880,6 +959,23 @@ def main() -> None:
           f"{index_ms:.3f} ms ({r_nwin} windows of {int(spans.min())} to {int(spans.max())} input "
           f"bytes, median {int(spans.median())}), pass 1 {pass1_ms:.4f} ms, pass 2 {pass2_ms:.4f} ms, "
           f"whole-stream walk {walk_ms:.2f} ms (one call) {tag}")
+    # K5's passes alone, and its route without an index once (every step walked)
+    scan_main()
+    scan_pass1_ms = event_ms(lambda: scan_main(1), 5)
+    scan_pass2_ms = event_ms(lambda: scan_main(2), 5)
+    torch.cuda.synchronize()
+    start.record()
+    decode_stream._launch_scan(r_comp, len(payload), r_walk_scan_out, r_walk_state, r_walk_writtens)
+    end.record()
+    torch.cuda.synchronize()
+    scan_walk_ms = start.elapsed_time(end)
+    scan_walked = int(r_walk_state[decode_stream.S_WALKED])
+    assert torch.equal(r_walk_state[:16], r_state[:16]) and torch.equal(r_walk_writtens, r_writtens), \
+        "K5 without an index differs from its window route on the 48 MiB stream"
+    print(f"timing: decode_stream_scan on the {len(r_body)}-byte level-1 stream ({r_steps} steps): "
+          f"window route pass 1 (K2 over the {r_nwin} windows) {scan_pass1_ms:.4f} ms, pass 2 "
+          f"{scan_pass2_ms:.4f} ms ({int(r_state[decode_stream.S_WALKED])} steps walked); the route "
+          f"without an index {scan_walk_ms:.2f} ms (one call, {scan_walked} steps walked) {tag}")
     views = [memoryview(arr)[k * 65536 : (k + 1) * 65536] for k in range(nf)]
     kernel_out = {1: (big_enc_h, big_elen_h.tolist()), 2: big_enc_l2}
     for level in (1, 2):
@@ -937,10 +1033,11 @@ def main() -> None:
                           stream_set_kernel, stream_set_plain,
                           f"{len(st_dev)} stream and window cases", stream_bytes, 0),
         "decode_stream_scan": (scan_main,
-                               f"the {len(r_body)}-byte level-1 stream of the payload, "
-                               f"{decode_stream.n_steps(len(r_body), len(payload))} steps",
-                               len(payload), 1, scan_set_kernel, scan_set_plain,
-                               f"{len(sc_dev)} stream cases", stream_bytes + 128, 0),
+                               f"the {len(r_body)}-byte level-1 stream of the payload, {r_steps} "
+                               f"steps, {r_nwin} windows (both passes, the host index made before)",
+                               len(payload), 10, scan_set_kernel, scan_set_plain,
+                               f"{len(sc_dev)} stream cases, each on its route",
+                               len(r_body) + len(payload) + 8 * (r_nwin + 1) + 8 * (17 + r_steps), 0),
         "crc32c_mma": (lambda: crc32c_mma._launch(big, big_lens, fused_out),
                        f"{nf} x 64 KiB chunks", nf * 65536, 10,
                        lambda: crc32c_mma._launch(frames, lens, s_fused),
@@ -971,6 +1068,12 @@ def main() -> None:
         if name == "decode_stream":
             rows[-1].update({"pass1_ms": pass1_ms, "pass2_ms": pass2_ms, "index_ms": index_ms,
                              "walk_ms": walk_ms, "walk_over_ms": walk_ms / ms})
+        if name == "decode_stream_scan":
+            rows[-1].update({"timed_route": "window route: K2 over the windows, then pass 2",
+                             "pass1_source": KERNELS["decode_chunks"][0],
+                             "pass1_ms": scan_pass1_ms, "pass2_ms": scan_pass2_ms,
+                             "walked": int(r_state[decode_stream.S_WALKED]),
+                             "no_index_ms": scan_walk_ms, "no_index_walked": scan_walked})
     # K2: registers and CTAs per SM of each shape's kernel, and both layouts
     from snappy_tpu_torch.testing import decode_layouts
 
@@ -1010,9 +1113,12 @@ def main() -> None:
     assert r_status.tolist() == [1, len(payload), len(r_body), 0] and torch.equal(r_out.cpu(), payload_t), \
         ("window route decode of the 48 MiB stream", r_status.tolist())
     assert torch.equal(r_walk_out.cpu(), payload_t), "whole-stream walk of the 48 MiB stream"
-    scan_status = decode_stream.scan_status(scan_result["state"].cpu().tolist(), len(r_body), len(payload))
-    assert scan_status[0] == 1 and torch.equal(r_out_scan.cpu(), payload_t), \
+    scan_state = r_state.cpu().tolist()
+    scan_status = decode_stream.scan_status(scan_state, len(r_body), len(payload))
+    assert scan_status[0] == 1 and torch.equal(r_out_scan[: len(payload)].cpu(), payload_t), \
         ("scan-mode decode of the 48 MiB stream", scan_status)
+    assert scan_state[decode_stream.S_WALKED] == 0, ("steps walked on the 48 MiB stream", scan_state)
+    assert torch.equal(r_walk_scan_out.cpu(), payload_t), "K5 without an index on the 48 MiB stream"
     assert torch.equal(fused_out.cpu(), crc_out.cpu()), "crc32c_mma at the main-path shape"
 
     def sync_uncompress():
@@ -1035,7 +1141,7 @@ def main() -> None:
          len(payload), 3),
         ("sync uncompress_framed", sync_uncompress, len(payload), 3),
         ("uncompress_framed_into 8 MiB", lambda: resume_into(stream, 8 << 20), len(payload), 3),
-        ("decode (scan mode)", scan_decode, len(payload), 1),
+        ("decode (scan mode)", scan_decode, len(payload), 3),
         ("masked_crc32c", lambda: engine.masked_crc32c(payload, device=dev), len(payload), 3),
     ):
         best, med = e2e(fn, reps)

@@ -12,7 +12,8 @@ versions).  Framed files are compatible with other snappy tools (e.g.
 
 A raw decode goes through ``api.decode``: streams over 128 KiB take the
 streaming decoder that ``SNAPPY_TPU_STREAM_MODE`` names (``grid``, the
-default, or ``scan``).
+default, or ``scan``), each in two launches where the host's block index
+finds the stream's 64 KiB windows and in one launch elsewhere.
 """
 
 from __future__ import annotations

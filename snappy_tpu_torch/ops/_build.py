@@ -50,7 +50,7 @@ _ENTRY_POINTS: Dict[str, List] = {
     "decode_chunks": [_P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "decode_stream": [_P, _I64, _I64, _P, _P, _P],
     "decode_stream_windows": [_P, _I64, _I64, _P, _I64, _P, _P, _P, _I, _P],
-    "decode_stream_scan": [_P, _I64, _I64, _P, _P, _P, _I64, _P],
+    "decode_stream_scan": [_P, _I64, _I64, _P, _P, _P, _I64, _P, _I64, _P, _P, _P],
     "encode_blocks": [_P, _I64, _P, _I, _P, _I64, _P, _I, _P],
 }
 

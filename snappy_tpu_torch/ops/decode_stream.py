@@ -17,11 +17,14 @@ JAX counterpart: snappy_tpu/ops/decode_stream.py.
   the body's end), as the sequential decoder reports them.
 * Scan mode, ``decode_stream_scan``: the TPU kernel ``_kernel``, launched
   once per window by the ``lax.scan`` of ``decode_raw_stream``.  The CUDA
-  kernel is ``csrc/decode_stream_scan.cu``: one launch per scan step, the
-  scan state in a small int64 tensor on the card, each window written at
-  its final offset of one flat output.  It keeps the TPU kernel's
-  verdicts, ``unsupported`` included: a copy reaching more than 64 KiB
-  behind its window's start.
+  kernels compute the whole scan, each window written at its final offset
+  of one flat output: given ``in_offs``, pass 1 is K2's kernel
+  (``decode_chunks._launch``) over the index's windows and pass 2
+  (``csrc/decode_stream_scan.cu``, one CTA) writes down the step of every
+  window that K2 decoded cleanly and walks the other steps in order; with
+  no index, pass 2 alone walks every step.  Two launches, or one, for any
+  number of steps.  It keeps the TPU kernel's verdicts, ``unsupported``
+  included: a copy reaching more than 64 KiB behind its window's start.
 
 ``decode_raw_stream_bytes`` picks the mode from ``SNAPPY_TPU_STREAM_MODE``
 (``grid`` by default), as the JAX function does.
@@ -36,14 +39,16 @@ import numpy as np
 import torch
 
 from .. import config
-from . import _build, host_codec
+from . import _build, decode_chunks, host_codec
 from .decode_chunks import decode_tags
 
 LAUNCHES = 0  # decode_stream calls on the card, either route
 LAUNCHES_WINDOWS = 0  # launches of the window route (pass 1 and pass 2)
 LAUNCHES_WALK = 0  # launches of the whole-stream walk
-LAUNCHES_SCAN = 0  # kernel launches made by decode_stream_scan
+LAUNCHES_SCAN = 0  # K5's pass-2 launches: one per decode_stream_scan call on the card
+LAUNCHES_SCAN_WINDOWS = 0  # K2 launches made as K5's pass 1, on the window route
 REDECODED = 0  # windows that pass 2 decoded, summed by decode_raw_stream_bytes
+WALKED = 0  # steps that K5's pass 2 ran through scan_step, summed by decode_raw_stream_bytes
 
 SC_BYTES = 76800  # scan mode's comp window (4 * SC_WORDS)
 WIN = 65536  # the output window of scan mode (4 * OW_WORDS) and of K4's window route
@@ -51,6 +56,7 @@ MARGIN = 8
 STATE_WORDS = 16
 # the scan state, int64 [STATE_WORDS] (decode_stream_scan.cu)
 S_POS, S_WRITTEN, S_ERR, S_DONE, S_UNSUP, S_PK, S_PLEN, S_POFF = range(8)
+S_WALKED = STATE_WORDS  # the kernel's state buffer, int64 [17]: then the walked steps
 
 
 def _check(comp_u8: torch.Tensor, declared: int, out: torch.Tensor) -> None:
@@ -64,6 +70,19 @@ def _check(comp_u8: torch.Tensor, declared: int, out: torch.Tensor) -> None:
         raise ValueError("declared must lie in [0, len(out)]")
     if out.data_ptr() % 16:
         raise ValueError("out must be 16-byte aligned")
+
+
+def _check_index(in_offs: torch.Tensor, declared: int, out: torch.Tensor) -> int:
+    """Type, device and length of a window index; returns its windows."""
+    if in_offs.dtype != torch.int64 or in_offs.dim() != 1 or not in_offs.is_contiguous():
+        raise TypeError("in_offs must be a contiguous 1-D int64 tensor")
+    if in_offs.device != out.device:
+        raise ValueError("in_offs and out must be on one device")
+    if declared <= 0 or in_offs.shape[0] != window_count(declared) + 1:
+        raise ValueError(
+            f"in_offs must hold ceil(declared / {WIN}) + 1 offsets and declared be > 0"
+        )
+    return in_offs.shape[0] - 1
 
 
 def window_count(declared: int) -> int:
@@ -104,14 +123,7 @@ def decode_stream(
     _check(comp_u8, declared, out)
     dev = out.device
     if in_offs is not None:
-        if in_offs.dtype != torch.int64 or in_offs.dim() != 1 or not in_offs.is_contiguous():
-            raise TypeError("in_offs must be a contiguous 1-D int64 tensor")
-        if in_offs.device != dev:
-            raise ValueError("in_offs and out must be on one device")
-        if declared <= 0 or in_offs.shape[0] != window_count(declared) + 1:
-            raise ValueError(
-                f"in_offs must hold ceil(declared / {WIN}) + 1 offsets and declared be > 0"
-            )
+        _check_index(in_offs, declared, out)
     if status is None:
         status = torch.zeros(4, dtype=torch.int64, device=dev)
     elif status.dtype != torch.int64 or status.shape != (4,) or status.device != dev:
@@ -182,38 +194,103 @@ def n_steps(comp_len: int, declared: int) -> int:
 
 
 def decode_stream_scan(
-    comp_u8: torch.Tensor, declared: int, out: torch.Tensor
+    comp_u8: torch.Tensor,
+    declared: int,
+    out: torch.Tensor,
+    in_offs: Optional[torch.Tensor] = None,
+    state: Optional[torch.Tensor] = None,
+    host_offs: Optional[np.ndarray] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode the raw tag stream ``comp_u8`` (no varint header) with
-    declared length ``declared`` into ``out`` by ``n_steps`` scan steps.
+    declared length ``declared`` into ``out`` as the ``n_steps`` steps of
+    the scan.
+
+    ``in_offs`` (int64 [windows + 1] on out's device, ``window_index``)
+    takes the window route: K2 over the windows (pass 1), then one launch
+    that writes down the steps of the windows K2 decoded cleanly and walks
+    the others (pass 2); ``out`` then needs ``windows * 65536`` bytes, as
+    K2 fills every window's row.  Without it pass 2 alone walks every
+    step.  The result is the same.  ``host_offs``: the host array that
+    ``in_offs`` was uploaded from, for a caller that has it; its values
+    are checked there instead of copying ``in_offs`` back from the card.
 
     Returns (state int64 [16], writtens int64 [steps]) on out's device:
     the final scan state (see ``scan_status``) and each step's window
-    length; step ``k``'s window is ``out[sum(writtens[:k]):][:writtens[k]]``."""
+    length; step ``k``'s window is ``out[sum(writtens[:k]):][:writtens[k]]``.
+    The state is the first 16 words of ``state`` (int64 [17], made here
+    unless given), whose word 16 receives the steps that pass 2 ran
+    through ``scan_step`` (0 on the CPU).  Bytes of ``out`` past the
+    state's ``written`` are not kept."""
     _check(comp_u8, declared, out)
     dev = out.device
+    nwin = 0
+    if in_offs is not None:
+        nwin = _check_index(in_offs, declared, out)
+        if out.shape[0] < nwin * WIN:
+            raise ValueError(f"the window route needs out of windows * {WIN} bytes")
+        offs_h = in_offs.cpu().numpy() if host_offs is None else host_offs
+        decode_chunks.check_values(offs_h, window_lengths(declared), comp_u8.shape[0], WIN)
     steps = n_steps(comp_u8.shape[0], declared)
-    state = torch.zeros(STATE_WORDS, dtype=torch.int64, device=dev)
-    writtens = torch.zeros(steps, dtype=torch.int64, device=dev)
+    if state is None:
+        state = torch.empty(STATE_WORDS + 1, dtype=torch.int64, device=dev)
+    elif state.dtype != torch.int64 or state.shape != (STATE_WORDS + 1,) or state.device != dev:
+        raise ValueError(f"state must be an int64 [{STATE_WORDS + 1}] tensor on out's device")
     if dev.type == "cpu":
-        _scan_plain(comp_u8.numpy().tobytes(), declared, out.numpy(), state.numpy(), writtens.numpy())
-        return state, writtens
+        writtens = torch.zeros(steps, dtype=torch.int64)
+        state.zero_()
+        _scan_plain(comp_u8.numpy().tobytes(), declared, out.numpy(), state[:STATE_WORDS].numpy(),
+                    writtens.numpy())
+        return state[:STATE_WORDS], writtens
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    for k in range(steps):
-        _launch_scan(comp_u8, declared, out, state, writtens, k)
-    return state, writtens
+    writtens = torch.empty(steps, dtype=torch.int64, device=dev)
+    win = None
+    if nwin:
+        decl = torch.from_numpy(window_lengths(declared)).to(dev)
+        ok = torch.empty(nwin, dtype=torch.bool, device=dev)
+        written = torch.empty(nwin, dtype=torch.int32, device=dev)
+        win = (in_offs, decl, ok, written)
+    _launch_scan(comp_u8, declared, out, state, writtens, win)
+    return state[:STATE_WORDS], writtens
 
 
-def _launch_scan(comp_u8, declared: int, out, state, writtens, step: int) -> None:
-    """Launch one scan step on checked CUDA tensors, no checks."""
-    _build.launch(
-        "decode_stream_scan", out.device,
-        comp_u8.data_ptr(), comp_u8.shape[0], declared, out.data_ptr(),
-        state.data_ptr(), writtens.data_ptr(), step,
-    )
-    global LAUNCHES_SCAN
-    LAUNCHES_SCAN += 1
+def window_lengths(declared: int) -> np.ndarray:
+    """int32 [windows]: each window's output length, min(65536, declared -
+    65536 k), the declared length K2 decodes it to."""
+    lens = np.full(window_count(declared), WIN, dtype=np.int32)
+    if len(lens):
+        lens[-1] = declared - WIN * (len(lens) - 1)
+    return lens
+
+
+def _launch_scan(comp_u8, declared: int, out, state, writtens, win=None, passes: int = 3) -> None:
+    """Launch K5 on checked CUDA tensors, no checks: with ``win`` = (in_offs,
+    window lengths int32, K2's ok, K2's written), K2 over the windows (pass
+    1, bit 0 of ``passes``) and then pass 2 (bit 1), one after the other on
+    the current stream; one bit alone times one pass (pass 2 reads what an
+    earlier pass 1 left in ok and written).  Without ``win``, pass 2
+    alone."""
+    dev = out.device
+    in_offs = ok = written = None
+    nwin = 0
+    if win is not None:
+        in_offs, decl, ok, written = win
+        nwin = in_offs.shape[0] - 1
+        if passes & 1:
+            rows = out[: nwin * WIN].view(nwin, WIN)
+            decode_chunks._launch(comp_u8, in_offs, decl, rows, ok, written)
+            global LAUNCHES_SCAN_WINDOWS
+            LAUNCHES_SCAN_WINDOWS += 1
+    if passes & 2:
+        _build.launch(
+            "decode_stream_scan", dev,
+            comp_u8.data_ptr(), comp_u8.shape[0], declared, out.data_ptr(), state.data_ptr(),
+            writtens.data_ptr(), writtens.shape[0],
+            None if in_offs is None else in_offs.data_ptr(), nwin,
+            None if ok is None else ok.data_ptr(), None if written is None else written.data_ptr(),
+        )
+        global LAUNCHES_SCAN
+        LAUNCHES_SCAN += 1
 
 
 def scan_status(state, comp_len: int, declared: int) -> Tuple[int, int, int, int, int]:
@@ -338,36 +415,44 @@ def decode_raw_stream_bytes(
     reason), reason in {"invalid", "unsupported"} (decode_stream.py:654-728).
 
     ``mode`` (default: ``SNAPPY_TPU_STREAM_MODE``, else ``"grid"``): "grid"
-    runs K4, which serves every copy: on the window route where
-    ``window_index`` finds the stream's windows (before the body goes to
-    the card), as the whole-stream walk elsewhere.  "scan" runs K5, which
-    reports a copy reaching more than 64 KiB behind its window's start as
-    "unsupported".
-    A zero declared length takes scan mode in either, as in the JAX
-    function."""
+    runs K4, which serves every copy, "scan" runs K5, which reports a copy
+    reaching more than 64 KiB behind its window's start as "unsupported".
+    Both take their window route where ``window_index`` finds the stream's
+    windows (before the body goes to the card): K4's one CTA per window,
+    K5's K2 over the windows and one launch for the steps the index cannot
+    vouch for.  Elsewhere K4 walks the whole stream in one CTA and K5 walks
+    every step in one launch.  A zero declared length takes scan mode in
+    either, as in the JAX function."""
     if mode is None:
         mode = os.environ.get("SNAPPY_TPU_STREAM_MODE", "grid")
     if mode not in ("grid", "scan"):
         raise ValueError(f"SNAPPY_TPU_STREAM_MODE must be grid|scan: {mode!r}")
     dev = config.resolve_device(device)
     grid = mode == "grid" and declared > 0
-    in_offs = window_index(body, declared) if grid else None
+    in_offs = window_index(body, declared) if declared > 0 else None
     comp = torch.empty(len(body), dtype=torch.uint8)
     comp.numpy()[:] = np.frombuffer(body, dtype=np.uint8)
     comp = comp.to(dev)
-    out = torch.empty(max(declared, 1), dtype=torch.uint8, device=dev)
+    offs_d = None if in_offs is None else in_offs.to(dev)
     if grid:
+        out = torch.empty(max(declared, 1), dtype=torch.uint8, device=dev)
         status = torch.empty(4, dtype=torch.int64, device=dev)
-        decode_stream(comp, declared, out, None if in_offs is None else in_offs.to(dev), status)
+        decode_stream(comp, declared, out, offs_d, status)
         ok, _, _, redecoded = status.tolist()
         global REDECODED
         REDECODED += redecoded
         if not ok:
             return None, "invalid"
     else:
-        state, _ = decode_stream_scan(comp, declared, out)
-        ok, _, unsup, _, _ = scan_status(state.cpu().tolist(), len(body), declared)
+        nwin = 0 if in_offs is None else in_offs.shape[0] - 1
+        out = torch.empty(max(declared, nwin * WIN, 1), dtype=torch.uint8, device=dev)
+        state = torch.empty(STATE_WORDS + 1, dtype=torch.int64, device=dev)
+        decode_stream_scan(comp, declared, out, offs_d, state,
+                           None if in_offs is None else in_offs.numpy())
+        st = state.tolist()
+        global WALKED
+        WALKED += st[S_WALKED]
+        ok, _, unsup, _, _ = scan_status(st, len(body), declared)
         if not ok:
             return None, "unsupported" if unsup else "invalid"
     return out[:declared].cpu().numpy().tobytes(), "ok"
-

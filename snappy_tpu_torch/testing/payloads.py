@@ -564,14 +564,7 @@ def ops_stream(ops) -> Tuple[bytes, bytes]:
 def _copy_tags(body: bytes) -> List[Tuple[int, int, int]]:
     """(input offset, tag kind, output offset) of every copy tag of a valid
     tag stream."""
-    out, q, o = [], 0, 0
-    while q < len(body):
-        kind, hdr, length, _ = _tag(body, q)
-        if kind:
-            out.append((q, kind, o))
-        q += hdr + (length if kind == 0 else 0)
-        o += length
-    return out
+    return [t for t in _tag_starts(body) if t[1]]
 
 
 def _set_offset(b: bytearray, q: int, kind: int, off: int) -> None:
@@ -639,6 +632,163 @@ def window_cases(seed: int = 53) -> List[Tuple[bytes, int, Optional[bytes]]]:
 
     x = mixed_payload(200_000, seed + 1)
     out.append((raw_body(x[:60_000]) + literal(x[60_000:70_000]) + raw_body(x[70_000:]), len(x), x))
+    return out
+
+
+def scan_differential_cases() -> List[Tuple[bytes, int, bytes]]:
+    """(tag stream, declared, payload) triples: the JAX package's grid-
+    versus-scan payloads (tests/test_scalar_kernels.py:503-516: text of one
+    window and one byte more, pending segments over windows,
+    incompressible, RLE) and its split copy beyond the scan's history
+    (:136-176), made with the port's level-1 encoder."""
+    text = b"grid versus scan differential payload text " * 4000
+    out = [(raw_body(p), len(p), p) for p in (
+        text[:65536], text[:65537], text[:140_000], Rand(21).bytes(90_000).tobytes(), b"z" * 200_000,
+    )]
+    rng = Rand(13)
+    body, p = bytearray(), bytearray()
+    for n in (65000, 60000, 6040):
+        chunk = rng.bytes(n).tobytes()
+        body += literal(chunk)
+        p += chunk
+    body += copy4(70000, 64)
+    for _ in range(64):
+        p.append(p[-70000])
+    tail = rng.bytes(3).tobytes()
+    out.append((bytes(body + literal(tail)), len(p) + 3, bytes(p + tail)))
+    return out
+
+
+def scan_window_cases(seed: int = 79) -> List[Tuple[bytes, int, Optional[bytes]]]:
+    """(tag stream, declared, payload or None) triples for the window route
+    of the scan-mode decoder (decode_stream_scan with in_offs), in order:
+
+    * ragged: 70,000 one-byte literals, then 70,000 length-1 copy-4 tags:
+      every comp window drains before 64 KiB of output, so the steps are
+      walked and their lengths leave the 64 KiB grid;
+    * resync: a block-encoded window, a window that opens with a copy into
+      the window before (legal in the scan, refused by K2), then two
+      block-encoded windows;
+    * the history limit inside a window: two literal windows, then a copy
+      100 bytes into window 2 that reaches exactly 64 KiB behind the
+      window's start (served), then a block-encoded window; and the same
+      copy one byte further (``unsupported``);
+    * a bad tag (a copy at offset 0) in window 2, after window 1 opened
+      with a copy into window 0;
+    * a chain: windows 1, 2 and 3 each open with a copy into the window
+      before, and window 4 is block-encoded;
+    * the comp window's MARGIN: a literal window, then two windows of
+      short literals ending in four one-byte literals, whose input ends
+      exactly MARGIN (8) bytes before the end of the scan's comp window of
+      76,800 bytes (clean) and 4 bytes before it (the scan stops before
+      the last tag and the steps leave the grid), then a block-encoded
+      window;
+    * three block-encoded windows declaring 5,000 bytes more than they
+      hold: the scan sets done at the stream's end (the host index does
+      not build for it; scan_forced_index_cases gives it one);
+    * a declared length of 0.
+
+    Every tag falls on the 64 KiB output boundaries, so the host index
+    builds for all but the last two."""
+    rng = Rand(seed)
+    x = mixed_payload(4 * FRAME, seed)
+    w = [x[k * FRAME : (k + 1) * FRAME] for k in range(4)]
+    out: List[Tuple[bytes, int, Optional[bytes]]] = []
+
+    ones = rng.bytes(70_000).tobytes()
+    offs = rng.ints(1, 4000, 70_000).tolist()
+    body, p = bytearray(b"".join(literal(ones[k : k + 1]) for k in range(70_000))), bytearray(ones)
+    for off in offs:
+        body += copy4(off, 1)
+        p.append(p[-off])
+    out.append((bytes(body), len(p), bytes(p)))
+
+    p = w[0] + w[0][-300:-236] + w[1][64:] + w[2] + w[3]
+    body = encode_block(w[0]) + copy4(300, 64) + encode_block(w[1][64:]) + encode_block(w[2])
+    out.append((body + encode_block(w[3]), len(p), p))
+
+    for off in (FRAME + 100, FRAME + 101):
+        head = literal(w[0]) + literal(w[1]) + literal(w[2][:100])
+        p = bytearray(w[0] + w[1] + w[2][:100])
+        for _ in range(8):
+            p.append(p[-off])
+        p += w[2][108:] + w[3]
+        tail = literal(w[2][108:]) + encode_block(w[3])
+        out.append((head + copy4(off, 8) + tail, len(p), bytes(p)))
+
+    body = encode_block(w[0]) + copy4(300, 64) + encode_block(w[1][64:])
+    body += literal(w[2][:1000]) + copy2(0, 10) + literal(w[2][1010:])
+    out.append((body, 3 * FRAME, None))
+
+    body, p = bytearray(encode_block(w[0])), bytearray(w[0])
+    for k in (1, 2, 3):
+        body += copy4(FRAME - 7 * k, 40) + encode_block(w[k][40:])
+        p += p[len(p) - (FRAME - 7 * k) :][:40] + w[k][40:]
+    body += encode_block(x[:5000])
+    p += x[:5000]
+    out.append((bytes(body), len(p), bytes(p)))
+
+    body, p = bytearray(literal(w[0])), bytearray(w[0])
+    for end in (76_792, 76_796):  # input end - word-aligned window start
+        span = end - (len(body) & 3) - 8
+        count = span - (FRAME - 4)  # literals of 5 and 6 bytes: one header byte each
+        sixes = FRAME - 4 - 5 * count
+        data = rng.bytes(FRAME).tobytes()
+        q = 0
+        for k in range(count + 4):
+            n = 6 if k < sixes else 5 if k < count else 1
+            body += literal(data[q : q + n])
+            q += n
+        p += data
+    body += encode_block(w[3])
+    p += w[3]
+    out.append((bytes(body), len(p), bytes(p)))
+
+    p = w[0] + w[1] + w[2]
+    out.append((raw_body(p), len(p) + 5000, None))
+    out.append((raw_body(w[0][:40]), 0, None))
+    return out
+
+
+def scan_forced_index_cases(seed: int = 83) -> List[Tuple[bytes, int, np.ndarray]]:
+    """(tag stream, declared, in_offs) triples: window indices that the
+    host's block scan does not give, for the scan-mode decoder's window
+    route, whose result must not depend on the index:
+
+    * three block-encoded windows declaring 5,000 bytes more than they
+      hold, on their true windows plus an empty fourth: window 2's step
+      sets done, with the output short of the declared length;
+    * a copy over the first 64 KiB boundary (6 bytes before it, 4 after),
+      then a 64 KiB literal window and a short one, on an index whose
+      second window starts after the copy tag: the scan reaches it on the
+      grid and at its offset, but with the copy's 4 bytes pending;
+    * a 2-byte literal, a 64 KiB literal and a short one, on an index whose
+      first window starts at the 64 KiB literal: K2 decodes that window,
+      but the scan never reaches it there."""
+    x = mixed_payload(3 * FRAME, seed)
+    body = raw_body(x)
+    offs = [FRAME * k for k in range(3)]
+    in_offs = [int(q) for q, _, o in _tag_starts(body) if o in offs] + [len(body), len(body)]
+    out = [(body, len(x) + 5000, np.asarray(in_offs, dtype=np.int64))]
+    lead = literal(x[: FRAME - 6]) + copy2(100, 10)
+    body = lead + literal(x[FRAME : 2 * FRAME]) + literal(x[:1000])
+    in_offs = [0, len(lead), len(lead) + FRAME + 3, len(body)]
+    out.append((body, 2 * FRAME + 4 + 1000, np.asarray(in_offs, dtype=np.int64)))
+    body = literal(x[:2]) + literal(x[FRAME : 2 * FRAME]) + literal(x[:1000])
+    in_offs = [3, 3 + FRAME + 3, len(body)]
+    out.append((body, FRAME + 1002, np.asarray(in_offs, dtype=np.int64)))
+    return out
+
+
+def _tag_starts(body: bytes) -> List[Tuple[int, int, int]]:
+    """(input offset, tag kind, output offset) of every tag of a valid tag
+    stream."""
+    out, q, o = [], 0, 0
+    while q < len(body):
+        kind, hdr, length, _ = _tag(body, q)
+        out.append((q, kind, o))
+        q += hdr + (length if kind == 0 else 0)
+        o += length
     return out
 
 

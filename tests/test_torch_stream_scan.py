@@ -7,8 +7,10 @@ what ``decode_raw_stream_bytes(mode="scan")`` runs): the same status
 every step and the same window bytes.  Each stream is zero-padded to one
 buffer shape and run at its own step count (4 or 16 here), so the Pallas
 interpreter compiles twice for the whole file.  The CUDA kernel's source
-compiled by g++ (the twin) runs the same scan step as the card and is held
-against the plain version, state and bytes, exactly.  The engine's route
+compiled by g++ (the twin) runs the route without a window index, pass 2
+alone walking every step with the card's scan step, and is held against
+the plain version, state and bytes, exactly (the window route:
+test_torch_stream_scan_windows.py).  The engine's route
 (scan mode, then K4 on ``unsupported``) is checked by which decoder each
 call reaches.
 """
@@ -26,36 +28,12 @@ from snappy_tpu_torch import api, engine  # noqa: E402
 from snappy_tpu_torch.formats import varint  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_stream  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
-from snappy_tpu_torch.testing.payloads import Rand, raw_body  # noqa: E402
-
-
-def _differential_cases():
-    """The grid-versus-scan payloads of tests/test_scalar_kernels.py:503-516
-    (text of one window and one byte more, pending segments over windows,
-    incompressible, RLE) and the split copy beyond the history of
-    :136-176, made with the port's level-1 encoder."""
-    text = b"grid versus scan differential payload text " * 4000
-    out = [(raw_body(p), len(p), p) for p in (
-        text[:65536], text[:65537], text[:140_000], Rand(21).bytes(90_000).tobytes(), b"z" * 200_000,
-    )]
-    rng = Rand(13)
-    body, p = bytearray(), bytearray()
-    for n in (65000, 60000, 6040):
-        chunk = rng.bytes(n).tobytes()
-        body += payloads.literal(chunk)
-        p += chunk
-    body += payloads.copy4(70000, 64)
-    for _ in range(64):
-        p.append(p[-70000])
-    tail = rng.bytes(3).tobytes()
-    out.append((bytes(body + payloads.literal(tail)), len(p) + 3, bytes(p + tail)))
-    return out
 
 
 CASES = (
     [(b, m, p) for b, m, p in payloads.stream_cases()]
     + payloads.scan_edge_cases()
-    + _differential_cases()
+    + payloads.scan_differential_cases()
 )
 PAD_WORDS = max(-(-len(b) // 4) for b, _, _ in CASES) + jax_stream.SC_WORDS + 1024 + 8
 
@@ -117,7 +95,7 @@ def test_cases_cover_every_verdict():
 def test_decode_raw_stream_bytes_matches_jax():
     """The JAX function itself, on the split copy beyond the history
     (test_scalar_kernels.py:136-176): scan says unsupported, grid serves it."""
-    body, m, payload = _differential_cases()[-1]
+    body, m, payload = payloads.scan_differential_cases()[-1]
     want = jax_stream.decode_raw_stream_bytes(body, m, interpret=True, mode="scan")
     assert want == (None, "unsupported")
     assert decode_stream.decode_raw_stream_bytes(body, m, mode="scan", device="cpu") == want
@@ -199,15 +177,16 @@ def twin():
 
 
 def run_twin(twin, body: bytes, m: int):
+    """Pass 2 alone (no window index): every step walked in one call."""
     src = np.frombuffer(body, dtype=np.uint8).copy() if body else np.zeros(1, np.uint8)
     out = np.zeros(max(m, 1), dtype=np.uint8)
-    state = np.zeros(decode_stream.STATE_WORDS, dtype=np.int64)
-    writtens = np.zeros(decode_stream.n_steps(len(body), m), dtype=np.int64)
-    for k in range(len(writtens)):
-        assert twin.stpu_twin_decode_stream_scan(
-            src.ctypes.data, len(body), m, out.ctypes.data, state.ctypes.data, writtens.ctypes.data, k
-        ) == 0
-    return state, writtens, out
+    state = np.full(decode_stream.STATE_WORDS + 1, -7, dtype=np.int64)
+    writtens = np.full(decode_stream.n_steps(len(body), m), -7, dtype=np.int64)
+    assert twin.stpu_twin_decode_stream_scan(
+        src.ctypes.data, len(body), m, out.ctypes.data, state.ctypes.data, writtens.ctypes.data,
+        len(writtens), None, 0, None, None,
+    ) == 0
+    return state[: decode_stream.STATE_WORDS], writtens, out
 
 
 @pytest.mark.parametrize("k", range(len(CASES)))
