@@ -33,7 +33,11 @@ Phases, each reported on its own lines:
               words, every step's length and the bytes equal its plain
               scan, and the steps walked by pass 2 are as expected; the
               GF(2) CRC (K6) on the 8 blocks; equal, or it
-              fails; then the CRC differential: K1 on 512 seeded rows of
+              fails; then K6 against the host C CRC on seeded rows in
+              batches of N = 1, 7, 131, 132, 133, 264, 769 and 2048 (the
+              counts around its grid of 2 CTAs an SM) with lengths of
+              0-65,536, and on the lengths 0, 1, 31, 32, 33, 511, 512,
+              4095, 4096, 65,535 and 65,536; then the CRC differential: K1 on 512 seeded rows of
               0-64 KiB at every start offset and on prefixes of the payload
               of 64 KiB + 1 up to 48 MiB as single rows equals the host C
               CRC (host_codec.masked_crc32c), and K1 on one row of 1 MiB + 7
@@ -96,7 +100,8 @@ Phases, each reported on its own lines:
               likewise the host C CRC for K1; for K1 (crc32c at 768 x
               64 KiB, crc32c_long on the payload as one row) its registers,
               shared memory and CTAs per SM and the A/B of its two layouts
-              (testing/crc_layouts.measure); for K2
+              (testing/crc_layouts.measure); for K6 its registers,
+              spills, shared memory and CTAs per SM; for K2
               the registers of each shape's kernel (ptxas) and its CTAs per
               SM, and the A/B of its two layouts at both shapes
               (testing/decode_layouts.measure: the row in shared memory,
@@ -154,6 +159,8 @@ KERNELS = {
                     "snappy_tpu/ops/crc32c_pallas.py:52", "one_shot"),
 }
 CRC_DIFFERENTIAL = 32  # rows per start offset held against the host C CRC
+MMA_SWEEP = (1, 7, 131, 132, 133, 264, 769, 2048)  # K6's batches held against the host C CRC
+MMA_EDGES = [0, 1, 31, 32, 33, 511, 512, 4095, 4096, 65535, 65536]
 ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
 DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
 K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
@@ -499,6 +506,27 @@ def main() -> None:
     want = crc32c_mma._crc32c_mma_plain(frames_h, lens_h)
     err["crc32c_mma"] = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     assert torch.equal(got, want), ("crc32c_mma", got, want)
+    # K6 against the host C CRC: batches of seeded rows at the counts around
+    # its persistent grid (CTAs per SM x SMs), then the kernel's edge lengths
+    pool_h = payloads.Rand(29).bytes(max(MMA_SWEEP) * 65536).reshape(-1, 65536)
+    pool = torch.from_numpy(pool_h).to(dev)
+    col = torch.arange(65536, device=dev)
+    rnd = payloads.Rand(31)
+    sweep = [(n_sw, rnd.ints(0, 65537, n_sw)) for n_sw in MMA_SWEEP]
+    for n_sw, sw_lens in sweep:
+        sw_lens[rnd.ints(0, 4, n_sw) == 0] = 65536  # a quarter full chunks
+    sweep.append((len(MMA_EDGES), np.array(MMA_EDGES, dtype=np.int64)))
+    for n_sw, sw_lens in sweep:
+        sw_lens_d = torch.from_numpy(sw_lens.astype(np.int32)).to(dev)
+        rows_sw = pool[:n_sw].masked_fill(col >= sw_lens_d[:, None], 0)
+        got_sw = crc32c_mma.masked_crc32c_chunks_fused(rows_sw, sw_lens_d).cpu().numpy().tolist()
+        want_sw = [host_codec.masked_crc32c(pool_h[k, :n]) for k, n in enumerate(sw_lens.tolist())]
+        bad = [k for k in range(n_sw) if got_sw[k] != want_sw[k]]
+        assert not bad, ("crc32c_mma against the host C CRC", n_sw, [(k, int(sw_lens[k])) for k in bad[:8]])
+    del pool, rows_sw
+    print(f"kernels: crc32c_mma equals the host C CRC on {sum(len(l) for _, l in sweep)} seeded rows: "
+          f"batches of N = {', '.join(str(n_sw) for n_sw in MMA_SWEEP)} with lengths 0-65,536, and "
+          f"the edge lengths {MMA_EDGES} (tolerance: exact)")
     diff_blocks = payloads.encoder_blocks(ENCODER_DIFFERENTIAL)
     d_rows, d_lens = block_batch(diff_blocks, dev)
     for level in (1, 2):
@@ -1107,6 +1135,17 @@ def main() -> None:
                   f"{k1['ctas_per_sm']} CTAs per SM of {32 * k1['warps']} threads; the A/B (i, ii, "
                   f"ii, i): layout (i) {times['i'][0]:.4f} / {times['i'][1]:.4f} ms, layout (ii) "
                   f"{times['ii'][0]:.4f} / {times['ii'][1]:.4f} ms {tag}")
+    # K6: registers, spills, shared memory and CTAs per SM
+    from snappy_tpu_torch.testing import mma_layouts
+
+    k6 = mma_layouts.kernel_params(_build.cuda_lib())
+    k6_regs = mma_layouts.registers(_build.cuda_build_log()).get(mma_layouts.PACKAGE, {})
+    for row in rows:
+        if row["name"] == "crc32c_mma":
+            row.update({**k6_regs, "ctas_per_sm": k6["ctas_per_sm"], "smem_bytes": k6["smem_bytes"]})
+            print(f"timing: crc32c_mma: {k6_regs.get('registers')} registers, "
+                  f"{k6_regs.get('spill_bytes')} bytes spilled, {k6['smem_bytes']} bytes of shared "
+                  f"memory a CTA of {32 * k6['warps']} threads, {k6['ctas_per_sm']} CTAs per SM {tag}")
     torch.cuda.synchronize()
     assert int(long_out[0]) == payload_crc, "crc32c on the payload as one row"
     payload_t = torch.frombuffer(bytearray(payload), dtype=torch.uint8)

@@ -6,10 +6,14 @@ JAX counterpart: snappy_tpu/ops/crc32c_mxu.py (the TPU kernel
 register of a 512-byte super-lane is ``A . bits`` mod 2 with a fixed
 int8 [4096, 32] matrix ``A``, and the 128 super-lane registers of a
 64 KiB chunk combine into the chunk's register by the matrix ``B`` or by
-the GF(2) combine tree.  The CUDA kernel ``csrc/crc32c_mma.cu`` computes
-stage 1 with ``mma.sync`` s8 products and folds and finishes each chunk in
-its epilogue; ``A``, ``B``, the fold and the inverse shift matrices are
-built here, on the host, from the tables of ``ops/crc32c.py``.
+the GF(2) combine tree; the plain version computes exactly that.  The CUDA
+kernel ``csrc/crc32c_mma.cu`` runs the same product as a Horner walk over
+32-byte steps on ``mma.sync`` u8 products: ``A32`` (the last 256 rows of
+``A``) for the step's bits and ``M32`` (the advance over 32 bytes) for the
+register so far, packed here as its B fragments, with the "advance by 2^j
+bytes" tables of its folds, the inverse shift matrices of the zero tail
+and the init term, all built on the host from the tables of
+``ops/crc32c.py``.
 
 The fused variant's contract: chunks of ``CHUNK`` bytes, zero past their
 length (checked on the CPU path; the kernel trusts it).  Unlike the JAX
@@ -27,15 +31,23 @@ import numpy as np
 import torch
 
 from . import _build
-from .crc32c import _gf2_apply, mask, shift_matrices, tables
+from .crc32c import _gf2_apply, adv_tables, mask, shift_matrices, tables
 
 LAUNCHES = 0  # kernel launches made by masked_crc32c_chunks_fused
 
 CHUNK = 65536
-SUPER = 512  # super-lane: 512 bytes = 4096 bits
+SUPER = 512  # super-lane of the TPU kernel: 512 bytes = 4096 bits
 N_SUPER = CHUNK // SUPER  # 128
 SBITS = SUPER * 8  # 4096
-K_STEPS = SBITS // 32  # mma k-steps of 32 bits per super-lane
+# The CUDA kernel's geometry (csrc/crc32c_mma.cu): a CTA's warps take a
+# chunk's units, an mma row of a warp a stripe of its unit, 32 bytes a step.
+WARPS = 8
+UNIT = CHUNK // WARPS  # 8 KiB
+STRIPE = UNIT // 16  # 512 bytes
+STEP = 32
+STEPS = STRIPE // STEP  # 16
+MMA_K_STEPS = 9  # bit planes 0 .. 7, then the register so far
+ADV_LEVELS = (5, 9, 10, 11, 12, 13, 14, 15)  # the advance tables it takes (2^j bytes)
 
 _consts: Dict[torch.device, torch.Tensor] = {}
 
@@ -110,25 +122,56 @@ def finish(regs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return out
 
 
+def a32() -> np.ndarray:
+    """int8 [256, 32]: row 8 b + j holds the register contribution of bit j
+    of byte b of a 32-byte block (A's last 256 rows)."""
+    t0 = tables()[0]
+    out = np.zeros((8 * STEP, 32), dtype=np.int8)
+    for j in range(8):
+        v = int(t0[1 << j])
+        for byte in range(STEP - 1, -1, -1):
+            out[8 * byte + j] = _bits(v)
+            v = _gf2_apply(shift_matrices()[0], v)
+    return out
+
+
+def m32() -> np.ndarray:
+    """uint32 [32]: the columns of the advance over 32 zero bytes."""
+    return shift_matrices()[5]
+
+
 @functools.cache
-def consts() -> np.ndarray:
-    """The kernel's constants, uint32 (offsets in crc32c_mma.cu): A as
-    mma.sync B-operand fragments [k-step][lane][n-tile][2] of 4 int8 (lane
-    = 4 g + t holds A[32 kk + 4 t + i + 16 r, 8 nt + g] in byte i of
-    register r), A's rows as 32-bit masks (for the CPU twin), the 7 fold
-    matrices, the 17 inverse shift matrices and the init term."""
-    A, _ = matrices()
+def fragments() -> np.ndarray:
+    """The kernel's B fragments, uint32 [9, 32, 4, 2] ([k-step][lane][n-tile]
+    [b0, b1], 4 u8 a word).  Lane (g, t), byte i of b_r holds row slot
+    4t + i + 16r, column 8 nt + g.  k-steps 0 .. 7: the slot is byte 8t +
+    4r + i of the step's block (the lane's loads), the weight A32[8 byte +
+    kk] scaled by 2^(7 - kk).  k-step 8: the slot is bit 16r + 8(i // 2) +
+    2t + i % 2 of the register so far (the C fragment's columns of the
+    lane), the weight M32's, 0/1."""
+    A, M = a32().astype(np.uint32), m32()
     kk, lane, nt, r, i = np.meshgrid(
-        np.arange(K_STEPS), np.arange(32), np.arange(4), np.arange(2), np.arange(4), indexing="ij"
+        np.arange(MMA_K_STEPS), np.arange(32), np.arange(4), np.arange(2), np.arange(4),
+        indexing="ij",
     )
     g, t = lane // 4, lane % 4
-    vals = A[32 * kk + 4 * t + i + 16 * r, 8 * nt + g].astype(np.uint32)
-    frag = (vals << (8 * np.arange(4, dtype=np.uint32))).sum(axis=-1, dtype=np.uint32)
-    rows = (A.astype(np.uint32) << np.arange(32, dtype=np.uint32)).sum(axis=1, dtype=np.uint32)
-    fold = shift_matrices()[9:16]  # level j advances over 512 * 2^j bytes
+    col = 8 * nt + g
+    byte = 8 * t + 4 * r + i
+    data = A[8 * byte + np.minimum(kk, 7), col] << (7 - np.minimum(kk, 7)).astype(np.uint32)
+    bit = 16 * r + 8 * (i // 2) + 2 * t + i % 2
+    state = (M[bit] >> col.astype(np.uint32)) & 1
+    vals = np.where(kk < 8, data, state).astype(np.uint32)
+    return (vals << (8 * np.arange(4, dtype=np.uint32))).sum(axis=-1, dtype=np.uint32)
+
+
+@functools.cache
+def consts() -> np.ndarray:
+    """The kernel's constants, uint32 (offsets in crc32c_mma.cu): the B
+    fragments, the advance tables of ``ADV_LEVELS`` [8, 4, 256], the 17
+    inverse shift matrices and the init term."""
     return np.concatenate([
-        frag.reshape(-1), rows, fold.reshape(-1), inverse_shift_matrices().reshape(-1),
-        np.array([init_term()], dtype=np.uint32),
+        fragments().reshape(-1), adv_tables()[list(ADV_LEVELS)].reshape(-1),
+        inverse_shift_matrices().reshape(-1), np.array([init_term()], dtype=np.uint32),
     ])
 
 
