@@ -1,5 +1,5 @@
 """Drive the port's framed, raw and stream-layer paths once on one CUDA
-card and check them.
+card and check them, and the same entry points on the host backend.
 
     python3 chip_smoke.py
 
@@ -80,6 +80,16 @@ Phases, each reported on its own lines:
               window route, no step walked), and a far-copy stream (K5
               without an index, then the whole-stream walk of K4: one
               literal over the boundaries);
+6b. host    — the same entry points on the host backend
+              (config.set_backend("host"): the native C runtime on this
+              machine's cores): encode_framed and encode of the payload at
+              levels 1 and 2 (the pinned JAX digests), decode_framed and
+              decode back to the payload, decode_batch of the serving batch
+              equal to the device backend's results, uncompress_framed_into
+              through 1 MiB and 8 MiB buffers (the device backend's
+              (read, written) steps), payloads.framed_vectors, the sync and
+              asyncio adapters (digests, and back to the payload) and
+              masked_crc32c; no kernel launches;
 7. fused CRC — crc32c_mma.masked_crc32c_chunks_fused over the 769 frames
               of the payload, equal to K1's CRCs of the same frames; then
               the one-shot masked_crc32c of the whole payload (K1 over
@@ -87,6 +97,7 @@ Phases, each reported on its own lines:
               host C CRC;
 8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
               counts set to 0 just before each path and read just after;
+              every count reads 0 across the host phase (6b);
               for scan mode, K5's pass-2 and pass-1 launches, K4's
               launches after `unsupported` and the steps pass 2 walked;
 9. timings  — each kernel at its main-path shape and on its small set
@@ -105,7 +116,9 @@ Phases, each reported on its own lines:
               the registers of each shape's kernel (ptxas) and its CTAs per
               SM, and the A/B of its two layouts at both shapes
               (testing/decode_layouts.measure: the row in shared memory,
-              or written in place in global memory).
+              or written in place in global memory); then the end-to-end
+              rates once more on the host backend, each beside the device
+              backend's, with the CPU model and os.cpu_count().
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -128,6 +141,7 @@ import hashlib
 import io
 import json
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -197,6 +211,20 @@ def card_label() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def cpu_label() -> str:
+    """The host CPU as /proc/cpuinfo names it (the first processor's
+    vendor, family, model and model name, as far as they are given), the
+    machine and the core count."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for ln in f:
+            key, _, value = ln.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    names = ("vendor_id", "cpu family", "model", "model name", "CPU implementer", "CPU part")
+    model = "; ".join(f"{k} {fields[k]}" for k in names if fields.get(k)) or "not in /proc/cpuinfo"
+    return f"{model}; {platform.machine()}, os.cpu_count() {os.cpu_count()}"
+
+
 def event_ms(fn, reps: int) -> float:
     """Mean device time of fn() in ms over reps calls, after one warm-up."""
     fn()
@@ -253,7 +281,7 @@ def main() -> None:
     # 1. setup ---------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available")
-    from snappy_tpu_torch import api, cli, engine
+    from snappy_tpu_torch import api, cli, config, engine
     from snappy_tpu_torch.formats import constants as C
     from snappy_tpu_torch.formats import framing, varint
     from snappy_tpu_torch.ops import (
@@ -818,6 +846,73 @@ def main() -> None:
           f"{scan_raw_route}); cli -d --raw in scan mode {cli_launches['raw']}, and on a far-copy "
           f"stream {cli_launches['far']}")
 
+    # 6b. the host backend ---------------------------------------------------
+    # The same entry points with the backend set to host: the native C
+    # runtime on this machine's cores, no kernel.
+    payload_crc = host_codec.masked_crc32c(payload)
+    config.set_backend("host")
+    reset_counts()
+    try:
+        host_framed = {level: api.encode_framed(payload, level=level) for level in (1, 2)}
+        host_raw = {level: api.encode(payload, level=level) for level in (1, 2)}
+        host_framed_back = api.decode_framed(host_framed[1])
+        host_raw_back = api.decode(host_raw[1])
+        host_batch = api.decode_batch(serving)
+        host_into = {size: resume_into(stream, size) for size in (1 << 20, 8 << 20)}
+        host_vectors = []
+        for name, data, budget, check_integrity, expected in payloads.framed_vectors():
+            res = api.uncompress_framed_into(data, bytearray(budget), True, check_integrity)
+            host_vectors.append((name, ("ok",) + tuple(res.value) if res.is_ok() else
+                                 ("err", res.error.name), expected))
+        dst = io.BytesIO()
+        sync.compress_framed(io.BytesIO(payload), dst)
+        host_sync = {"sync compress_framed": dst.getvalue()}
+        dst = io.BytesIO()
+        sync.compress(io.BytesIO(payload), len(payload), dst)
+        host_sync["sync compress"] = dst.getvalue()
+        dst = io.BytesIO()
+        sync.uncompress_framed(io.BytesIO(stream), dst)
+        host_sync_back = dst.getvalue()
+        host_aio = {"aio compress_framed": run_pipe(payload, aio.compress_framed),
+                    "aio compress": run_pipe(payload, lambda r, w: aio.compress(r, len(payload), w))}
+        host_aio_back = run_pipe(stream, aio.uncompress_framed)
+        host_crc = engine.masked_crc32c(payload)
+    finally:
+        config.set_backend("device")
+    host_launches = counts()
+    host_routes = routes() + scan_routes()
+
+    for name, got_s, pinned in (("encode_framed L1", host_framed[1], payloads.GOLDEN_SHA256),
+                                ("encode_framed L2", host_framed[2], payloads.FRAMED_L2_SHA256),
+                                ("encode L1", host_raw[1], payloads.RAW_L1_SHA256),
+                                ("encode L2", host_raw[2], payloads.RAW_L2_SHA256),
+                                ("sync compress_framed", host_sync["sync compress_framed"],
+                                 payloads.GOLDEN_SHA256),
+                                ("aio compress_framed", host_aio["aio compress_framed"],
+                                 payloads.GOLDEN_SHA256),
+                                ("sync compress", host_sync["sync compress"], payloads.RAW_L1_SHA256),
+                                ("aio compress", host_aio["aio compress"], payloads.RAW_L1_SHA256)):
+        assert sha(got_s) == pinned, ("host backend", name, sha(got_s))
+        print(f"host: {name} {len(payload)} bytes -> {len(got_s)} bytes, sha256 {sha(got_s)} "
+              f"equals the pinned JAX digest")
+    for name, back in (("decode_framed", host_framed_back), ("decode", host_raw_back),
+                       ("sync uncompress_framed", host_sync_back), ("aio uncompress_framed", host_aio_back)):
+        assert back == payload, f"host backend: {name} did not return the payload"
+    assert host_batch == batch_out, "host backend: decode_batch differs from the device backend's"
+    for size, (steps, back) in host_into.items():
+        assert back == payload and steps == into[size][0], ("host backend: uncompress_framed_into", size)
+    for name, got_v, expected in host_vectors:
+        assert got_v[: len(expected)] == expected, ("host backend", name, got_v, expected)
+    assert host_crc == payload_crc, ("host backend: masked_crc32c", host_crc, payload_crc)
+    assert not any(host_launches.values()) and not any(host_routes), \
+        ("the host backend launched a kernel", host_launches, host_routes)
+    print(f"host: decode_framed, decode and the sync and aio uncompress_framed return the payload; "
+          f"decode_batch of {len(serving)} streams equals the device backend's; "
+          f"uncompress_framed_into through 1 MiB and 8 MiB buffers gives the device backend's "
+          f"(read, written) steps ({len(host_into[1 << 20][0])} and {len(host_into[8 << 20][0])}) and "
+          f"the payload; {len(host_vectors)} framed vectors give their pinned results; masked_crc32c "
+          f"equals the host C CRC; no kernel launched")
+
     # 7. the fused CRC --------------------------------------------------------
     all_frames, all_lens = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
     reset_counts()
@@ -828,7 +923,6 @@ def main() -> None:
     print(f"fused CRC: crc32c_mma equals crc32c on the {len(all_lens)} frames of the payload")
 
     # the one-shot masked_crc32c of the whole payload: K1 over every SM
-    payload_crc = host_codec.masked_crc32c(payload)
     reset_counts()
     one_shot = engine.masked_crc32c(payload, device=dev)
     one_shot_launches = counts()
@@ -837,7 +931,7 @@ def main() -> None:
 
     # 8. counters ------------------------------------------------------------
     path_launches = {"framed": framed_launches, "raw": raw_launches,
-                     "streams": stream_launches, "fused_crc": fused_launches,
+                     "streams": stream_launches, "host": host_launches, "fused_crc": fused_launches,
                      "one_shot": one_shot_launches}
     for name, got_c in path_launches.items():
         print(f"counters: {name} path {got_c}")
@@ -1168,7 +1262,7 @@ def main() -> None:
             api.decode(raw1, device=dev)
 
     batch_bytes = sum(len(e) for e in expect if e is not None)
-    for name, fn, nbytes, reps in (
+    end_to_end = (
         ("encode_framed L1", lambda: api.encode_framed(payload, device=dev), len(payload), 3),
         ("decode_framed", lambda: api.decode_framed(stream, device=dev), len(payload), 3),
         ("encode_framed L2", lambda: api.encode_framed(payload, level=2, device=dev), len(payload), 3),
@@ -1182,11 +1276,43 @@ def main() -> None:
         ("uncompress_framed_into 8 MiB", lambda: resume_into(stream, 8 << 20), len(payload), 3),
         ("decode (scan mode)", scan_decode, len(payload), 3),
         ("masked_crc32c", lambda: engine.masked_crc32c(payload, device=dev), len(payload), 3),
-    ):
-        best, med = e2e(fn, reps)
+    )
+    rates = {}
+    for name, fn, nbytes, reps in end_to_end:
+        best, med = rates[name] = e2e(fn, reps)
         print(f"timing: {name} {nbytes} bytes: best {best * 1e3:.2f} ms "
               f"({nbytes / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
               f"({nbytes / med / 1e9:.3f} GB/s) {tag}")
+    # the same calls on the host backend: the native C runtime on this
+    # machine's cores, the same-machine control
+    host_tag = f"[host backend: {cpu_label()}; {card}]"
+    config.set_backend("host")
+    try:
+        for name, fn, nbytes, reps in end_to_end:
+            if name == "decode (scan mode)":
+                continue  # a mode of the device backend's stream decoder
+            best, med = e2e(fn, reps)
+            print(f"timing: host backend {name} {nbytes} bytes: best {best * 1e3:.2f} ms "
+                  f"({nbytes / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
+                  f"({nbytes / med / 1e9:.3f} GB/s); host / device time: best "
+                  f"{best / rates[name][0]:.3f}, median {med / rates[name][1]:.3f} {host_tag}")
+    finally:
+        config.set_backend("device")
+    # where the host decodes' time goes: the native work alone, into a
+    # buffer written before (no page faults, no tobytes)
+    warm = np.empty(len(payload), dtype=np.uint8)
+    chunks = framing.scan_frames(stream, len(C.FRAMING_HEADER))
+    r_read = len(raw1) - len(r_body)
+    for name, fn in (
+        ("frame scan", lambda: framing.scan_frames(stream, len(C.FRAMING_HEADER))),
+        ("framed decode and CRC into a written buffer",
+         lambda: host_codec.framed_uncompress_scanned(stream, chunks, True, warm)),
+        ("raw decode into a written buffer",
+         lambda: host_codec.decode_raw_body_into(memoryview(raw1)[r_read:], len(payload), warm)),
+    ):
+        best, med = e2e(fn, 3)
+        print(f"timing: host backend stage: {name}: best {best * 1e3:.2f} ms, median {med * 1e3:.2f} ms "
+              f"{host_tag}")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

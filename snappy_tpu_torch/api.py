@@ -1,15 +1,20 @@
 """In-memory public API of the port: the raw and framed formats.
 
-JAX counterpart: snappy_tpu/api.py, its device paths: the raw calls
-``encode``, ``decode``, ``encode_batch``, ``decode_batch``,
-``compress_into``, ``uncompress_into`` and ``uncompressed_len``, the framed
-calls ``encode_framed``, ``decode_framed``, ``compress_framed_into`` and
-the resumable ``uncompress_framed_into``, the sizing helpers and the
-deprecated aliases ``compress`` and ``uncompress``.
+JAX counterpart: snappy_tpu/api.py: the raw calls ``encode``, ``decode``,
+``encode_batch``, ``decode_batch``, ``compress_into``, ``uncompress_into``
+and ``uncompressed_len``, the framed calls ``encode_framed``,
+``decode_framed``, ``compress_framed_into`` and the resumable
+``uncompress_framed_into``, the sizing helpers and the deprecated aliases
+``compress`` and ``uncompress``.
 
-Every call takes ``device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain versions).  The ``*_into`` functions are exception-free and
-return ``Result`` values with the reference's typed enums (codec.nim:56-64);
+Every call runs on the configured backend (config.py: ``device`` by
+default, or ``host``, the native C runtime), and takes ``device``, which
+matters only on the device backend (``cuda`` by default; ``cpu`` runs the
+kernels' plain versions).  As in the JAX package, the host backend's
+``uncompress_into``, ``compress_framed_into`` and
+``uncompress_framed_into`` write straight into the caller's buffer.  The
+``*_into`` functions are exception-free and return ``Result`` values with
+the reference's typed enums (codec.nim:56-64);
 the bytes-returning conveniences yield an empty result on any failure, as
 the reference's seq-returning functions do (snappy.nim:112-128, 269-290).
 The one exception: a read-only output buffer passed to an ``*_into``
@@ -42,6 +47,13 @@ def _require_writable(out) -> None:
         raise TypeError(
             "output buffer is read-only; pass a bytearray or writable memoryview"
         )
+
+
+def _host_view(out) -> Optional[np.ndarray]:
+    """``out`` (writable: ``_require_writable`` passed) as a uint8 array
+    where the configured backend is the host, else None (the engine
+    path)."""
+    return np.frombuffer(out, dtype=np.uint8) if config.resolve_backend() == "host" else None
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +127,16 @@ def uncompress_into(
     _require_writable(out)
     # The reference reads the uint32 varint first (snappy.nim:92-94): a
     # malformed one is invalid_input even where the buffer is too small.
-    declared, _read = varint.decode_uint32(bytes(data[:8]))
+    declared, read = varint.decode_uint32(bytes(data[:8]))
     if declared is None:
         return Err(CodecError.invalid_input)
     if declared > len(out):
         return Err(CodecError.buffer_too_small)
+    out_arr = _host_view(out)
+    if out_arr is not None:
+        if not host_codec.decode_raw_body_into(memoryview(data)[read:], declared, out_arr):
+            return Err(CodecError.invalid_input)
+        return Ok(declared)
     payload, _reason = engine.raw_uncompress(bytes(data), C.MAX_UNCOMPRESSED_LEN, device=device)
     if payload is None:
         return Err(CodecError.invalid_input)
@@ -166,6 +183,9 @@ def compress_framed_into(
     _require_writable(out)
     if len(out) < C.max_compressed_len_framed(len(data)):
         return Err(FrameError.buffer_too_small)
+    out_arr = _host_view(out)
+    if out_arr is not None:
+        return Ok(host_codec.framed_compress_into(bytes(data), out_arr))
     enc = engine.framed_compress(bytes(data), device=device)
     out[: len(enc)] = enc
     return Ok(len(enc))
@@ -234,7 +254,9 @@ def uncompress_framed_into(
     header scan: the records of the valid chunks give the taken prefix by
     a cumulative sum over the budget, and only the chunk where the walk
     stops (the budget, or the first malformed chunk) takes the
-    reference's per-chunk rules in Python."""
+    reference's per-chunk rules in Python.  On the host backend the whole
+    walk and the decode are native (``host_codec.framed_resume_decode``),
+    with the same results."""
     _require_writable(out)
     data = bytes(data)
     read = 0
@@ -243,6 +265,10 @@ def uncompress_framed_into(
             return Err(FrameError.invalid_input)
         read = len(C.FRAMING_HEADER)
     budget = len(out)
+    out_arr = _host_view(out)
+    if out_arr is not None:
+        r, w, reason = host_codec.framed_resume_decode(data, read, out_arr, budget, check_integrity)
+        return Err(_FRAME_REASONS[reason]) if r is None else Ok((r, w))
     rec, whole = host_codec.scan_frames_prefix(data, read)
     ends = np.cumsum(rec[:, 3])
     k = int(np.searchsorted(ends, budget, side="right"))  # records 0..k-1 fit

@@ -1,12 +1,15 @@
 """Raw and framed encode and decode around the kernels: batching and
-assembly.
+assembly, and the routing to the host backend.
 
-JAX counterpart: snappy_tpu/engine.py, its device paths: ``raw_compress``,
+JAX counterpart: snappy_tpu/engine.py: ``raw_compress``,
 ``raw_compress_batch``, ``raw_uncompress``, ``raw_uncompress_batch``,
 ``_split_blocks``, ``framed_compress``, ``framed_uncompress``,
 ``framed_uncompress_chunks``, ``framed_uncompress_chunks_into``,
-``_framed_uncompress_device``, ``_scan_failure_reason`` and the device
-``masked_crc32c``.
+``_framed_uncompress_device``, ``_scan_failure_reason`` and
+``masked_crc32c``.  Each public function takes ``backend`` (None: the
+configured one, see config.py); on ``host`` it calls the native runtime
+(ops/host_codec.py) where the JAX engine does, and ``device`` matters
+only on the device backend.
 
 Each call launches each kernel once over all its rows: the JAX engine's
 512-chunk slabs and power-of-two shape buckets were there to bound TPU
@@ -50,21 +53,29 @@ def _split_blocks(arr: np.ndarray, dev: torch.device):
 
 
 def raw_compress(
-    data: bytes, level: int = 1, device: config.DeviceLike = None
+    data: bytes, level: int = 1, device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Optional[bytes]:
     """Raw-format compress: varint header + the block tag streams
     (snappy.nim:27-64); None for input over MAX_UNCOMPRESSED_LEN.  Level
-    >= 2 encodes with two-way hash buckets (engine.py:222)."""
-    return raw_compress_batch([data], level, device)[0]
+    >= 2 encodes with two-way hash buckets (engine.py:222).  The backends
+    give the same bytes."""
+    if config.resolve_backend(backend) == "host":
+        return host_codec.raw_compress(data, level)
+    return raw_compress_batch([data], level, device, "device")[0]
 
 
 def raw_compress_batch(
-    datas: List[bytes], level: int = 1, device: config.DeviceLike = None
+    datas: List[bytes], level: int = 1, device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> List[Optional[bytes]]:
     """Compress many payloads with one encoder launch over the 64 KiB
-    blocks of all of them.  Returns one stream (or None for oversized
-    input) per payload, byte-identical to ``raw_compress`` of that payload
-    alone (the block split is per payload)."""
+    blocks of all of them (on the host backend, one payload after the
+    other).  Returns one stream (or None for oversized input) per payload,
+    byte-identical to ``raw_compress`` of that payload alone (the block
+    split is per payload)."""
+    if config.resolve_backend(backend) == "host":
+        return [host_codec.raw_compress(d, level) for d in datas]
     dev = config.resolve_device(device)
     results: List[Optional[bytes]] = [None] * len(datas)
     plan = []  # (result index, first block row, block count)
@@ -143,12 +154,14 @@ def raw_uncompress(
     data: bytes,
     max_size: int = C.MAX_UNCOMPRESSED_LEN,
     device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Tuple[Optional[bytes], str]:
     """Raw-format uncompress (snappy.nim:84-128).  Returns (payload, "ok")
     or (None, reason); reason in {"invalid", "too_large"}.
 
-    A stream of at most 128 KiB out takes K2 at the big-window shape, any
-    larger one the streaming decoder in the mode that
+    The host backend decodes with ``host_codec.raw_uncompress``.  On the
+    device backend, a stream of at most 128 KiB out takes K2 at the
+    big-window shape, any larger one the streaming decoder in the mode that
     ``SNAPPY_TPU_STREAM_MODE`` names (engine.py:357-386): K4 in grid mode
     (the default), K5 in scan mode.  Scan mode's ``unsupported`` verdict (a
     copy reaching more than 64 KiB behind its window) routes the stream to
@@ -159,6 +172,8 @@ def raw_uncompress(
     cannot change, since both decoders are exact.  K4 and K5 keep 64-bit
     cursors, so the JAX engine's int32 guard (declared and body below
     2^31 - 2^21) is gone too."""
+    if config.resolve_backend(backend) == "host":
+        return host_codec.raw_uncompress(data, max_size)
     dev = config.resolve_device(device)
     declared, read, reason = _declared(data, max_size)
     if declared is None:
@@ -181,6 +196,7 @@ def raw_uncompress_batch(
     datas: List[bytes],
     max_size: int = C.MAX_UNCOMPRESSED_LEN,
     device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> List[Tuple[Optional[bytes], str]]:
     """Decode many independent raw streams: one K2 launch at the chunk
     shape over every one-block stream and every 64 KiB segment of the
@@ -193,7 +209,11 @@ def raw_uncompress_batch(
     (engine.py:511-518).  As in ``raw_uncompress``, the JAX engine's comp
     capacity conditions (``len(body) <= 4 * C_WORDS`` for a one-block
     stream, ``len(segment) > C_CAP`` refusing a split) are gone: K2 takes
-    ragged input.  Returns one (payload or None, reason) per stream."""
+    ragged input.  Returns one (payload or None, reason) per stream.  The
+    host backend decodes one stream after the other with
+    ``host_codec.raw_uncompress``."""
+    if config.resolve_backend(backend) == "host":
+        return [host_codec.raw_uncompress(d, max_size) for d in datas]
     dev = config.resolve_device(device)
     results: List[Optional[Tuple[Optional[bytes], str]]] = [None] * len(datas)
     seg_jobs = []  # (result index, body, in_offs, declared): the chunk shape
@@ -224,7 +244,7 @@ def raw_uncompress_batch(
         elif declared <= _BIG:
             big_jobs.append((i, body, declared))
         else:
-            results[i] = raw_uncompress(data, max_size, dev)
+            results[i] = raw_uncompress(data, max_size, dev, "device")
 
     if seg_jobs:
         seg_declared = []
@@ -241,7 +261,7 @@ def raw_uncompress_batch(
             elif r1 - r0 == 1:
                 results[i] = (None, "invalid")
             else:
-                results[i] = raw_uncompress(datas[i], max_size, dev)
+                results[i] = raw_uncompress(datas[i], max_size, dev, "device")
             r0 = r1
     if big_jobs:
         ok, out = _decode_segments(
@@ -259,12 +279,16 @@ def raw_uncompress_batch(
 
 
 def framed_compress(
-    data: bytes, with_header: bool = True, level: int = 1, device: config.DeviceLike = None
+    data: bytes, with_header: bool = True, level: int = 1, device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> bytes:
     """Framed-format compress (snappy.nim:130-155, encoder.nim:385-426):
     per 64 KiB frame, masked CRC + compressed payload if it saves >= 1/8 of
     the frame, else the verbatim payload.  ``with_header=False`` leaves out
-    the stream identifier (the stream adapters write it once)."""
+    the stream identifier (the stream adapters write it once).  The
+    backends give the same bytes."""
+    if config.resolve_backend(backend) == "host":
+        return host_codec.framed_compress(data, with_header, level)
     dev = config.resolve_device(device)
     head = [C.FRAMING_HEADER] if with_header else []
     if not data:
@@ -297,9 +321,14 @@ def framed_compress(
     return b"".join(parts)
 
 
-def masked_crc32c(payload: bytes, device: config.DeviceLike = None) -> int:
-    """Masked CRC32C of one buffer of any length on ``device`` (one row of
-    exactly its length: no power-of-two padding)."""
+def masked_crc32c(
+    payload: bytes, device: config.DeviceLike = None, backend: Optional[str] = None
+) -> int:
+    """Masked CRC32C of one buffer of any length: on the device backend on
+    ``device`` (one row of exactly its length: no power-of-two padding),
+    on the host backend by the host C CRC."""
+    if config.resolve_backend(backend) == "host":
+        return host_codec.masked_crc32c(payload)
     dev = config.resolve_device(device)
     n = len(payload)
     row = torch.zeros((1, max(n, 1)), dtype=torch.uint8)
@@ -418,9 +447,13 @@ def framed_uncompress_chunks(
     chunks: List[framing.ChunkInfo],
     check_integrity: bool = True,
     device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Tuple[Optional[List[bytes]], str]:
     """Decode a list of scanned chunks; returns ([payload], "ok") or
     (None, reason) with reason in {"invalid", "crc", "unknown_chunk"}."""
+    if config.resolve_backend(backend) == "host":
+        blob, reason = host_codec.framed_uncompress_scanned(data, chunks, check_integrity)
+        return (None, reason) if blob is None else ([blob], "ok")
     dev = config.resolve_device(device)
     total = sum(ch.uncompressed_len for ch in chunks)
     out_arr = np.empty((total,), dtype=np.uint8)
@@ -436,10 +469,14 @@ def framed_uncompress_chunks_into(
     out_arr: np.ndarray,
     check_integrity: bool = True,
     device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Tuple[Optional[int], str]:
     """Decode scanned chunks straight into ``out_arr`` (uint8, room for
     every chunk's output) at their final offsets.  Returns (written, "ok")
     or (None, reason)."""
+    if config.resolve_backend(backend) == "host":
+        blob, reason = host_codec.framed_uncompress_scanned(data, chunks, check_integrity, out_arr)
+        return (None, reason) if blob is None else (sum(c.uncompressed_len for c in chunks), "ok")
     dev = config.resolve_device(device)
     return _framed_uncompress_device(data, chunks, check_integrity, out_arr, dev)
 
@@ -450,12 +487,15 @@ def framed_uncompress(
     check_integrity: bool = True,
     require_header: bool = True,
     device: config.DeviceLike = None,
+    backend: Optional[str] = None,
 ) -> Tuple[Optional[bytes], str]:
     """Whole-stream framed decode.  Returns (payload, "ok") or (None,
     reason); reason in {"invalid", "crc", "unknown_chunk", "too_large"}.
     With ``require_header=False`` the stream may start at its first chunk,
-    without the stream identifier (snappy_tpu/engine.py:880-893)."""
-    dev = config.resolve_device(device)
+    without the stream identifier (snappy_tpu/engine.py:880-893).  The
+    header and scan checks are the same on both backends."""
+    host = config.resolve_backend(backend) == "host"
+    dev = None if host else config.resolve_device(device)
     start = 0
     if require_header:
         if not framing.is_snappy_framed_stream(data):
@@ -468,6 +508,8 @@ def framed_uncompress(
     total = sum(c.uncompressed_len for c in chunks)
     if total > max_size:
         return None, "too_large"
+    if host:
+        return host_codec.framed_uncompress_scanned(data, chunks, check_integrity)
     out_arr = np.empty((total,), dtype=np.uint8)
     written, reason = _framed_uncompress_device(data, chunks, check_integrity, out_arr, dev)
     if written is None:

@@ -69,13 +69,15 @@ def _build(
     link_cmd: List[str],
     sources: Sequence[Path],
     headers: Sequence[Path] = (),
+    salt: str = "",
 ) -> Path:
     """Build ``sources`` into a shared library in BUILD_DIR, unless one of
-    the same sources, headers and commands is there: each source compiles
-    in its own process (``compile_cmd -c src -o obj``), all started at
-    once, then ``link_cmd objs -o lib`` joins them.  The compilers' output
+    the same sources, headers, commands and ``salt`` (what else the build
+    depends on, such as the CPU that ``-march=native`` reads) is there:
+    each source compiles in its own process (``compile_cmd -c src -o
+    obj``), all started at once, then ``link_cmd objs -o lib`` joins them.  The compilers' output
     goes to a ``.log`` beside the library."""
-    digest = hashlib.sha256(repr((compile_cmd, link_cmd)).encode())
+    digest = hashlib.sha256(repr((compile_cmd, link_cmd)).encode() + salt.encode())
     for f in list(sources) + list(headers):
         digest.update(f.read_bytes())
     so = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"

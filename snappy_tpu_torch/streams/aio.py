@@ -1,11 +1,12 @@
 """Asynchronous stream adapters (asyncio).
 
-JAX counterpart: snappy_tpu/streams/aio.py, its device branch.  The
+JAX counterpart: snappy_tpu/streams/aio.py.  The
 reference generates the sync and async variants of its streaming framed
 decompressor from one body (faststreams.nim:89-147, ``fsMultiSync``);
 these wrappers give the async surface over asyncio StreamReader / Writer
-pairs, with the windows and the error model of ``streams/sync.py``.  The
-kernels run inside the coroutine, synchronously.
+pairs, with the windows, the backends and the error model of
+``streams/sync.py``.  The kernels, or the host runtime, run inside the
+coroutine, synchronously.
 """
 
 from __future__ import annotations
@@ -91,10 +92,10 @@ async def uncompress_framed(
         pending.extend(data)
         pos = whole_chunks(pending, len(pending))
         if pos:
-            decoded = decode_window(bytes(memoryview(pending)[:pos]), check_integrity, device)
-            writer.write(bytes(decoded))
-            await writer.drain()
-            written += len(decoded)
+            for decoded in decode_window(bytes(memoryview(pending)[:pos]), check_integrity, device):
+                writer.write(bytes(decoded))
+                await writer.drain()
+                written += len(decoded)
             del pending[:pos]
         if at_eof:
             if pending:

@@ -1,7 +1,6 @@
 """Synchronous stream adapters over file-like objects.
 
-JAX counterpart: snappy_tpu/streams/sync.py, its device branch (the host
-backend's native window decode comes with the host runtime).  Role parity
+JAX counterpart: snappy_tpu/streams/sync.py.  Role parity
 with the reference's stream layer (faststreams.nim, streams.nim): chunked
 compression of an input stream into an output stream, streaming framed
 decompression with bounded memory, and the exception-based error model
@@ -15,15 +14,18 @@ Each call reads 8 MiB windows (``batch_frames`` 64 KiB frames) and runs
 each through the kernels in one batch.  64 KiB blocks are independent and
 the windows align to them, so ``compress`` and ``compress_framed`` give the
 bytes of the one-shot ``api.encode`` and ``api.encode_framed``.  Every
-call takes ``device`` (``cuda`` by default; ``cpu`` runs the plain
-versions).
+call runs on the configured backend (config.py), and takes ``device``,
+which matters only on the device backend (``cuda`` by default; ``cpu``
+runs the plain versions).  On the host backend a window decodes by
+re-entering the native resumable walk (``host_codec.framed_resume_decode``)
+into a bounded output buffer.
 """
 
 from __future__ import annotations
 
 import io
 import threading
-from typing import BinaryIO
+from typing import BinaryIO, Iterator
 
 import numpy as np
 
@@ -31,6 +33,7 @@ from .. import config, engine
 from ..formats import constants as C
 from ..formats import framing, varint
 from ..formats.errors import MalformedSnappyData, UnexpectedEofError, raise_input_too_large
+from ..ops import host_codec
 
 _DEFAULT_BATCH = 128  # frames per window: 8 MiB of payload
 _WINDOW = 8 << 20  # compressed bytes read per decode window
@@ -101,24 +104,43 @@ def whole_chunks(buf, avail: int) -> int:
     return pos
 
 
-def decode_window(blob, check_integrity: bool, device: config.DeviceLike) -> memoryview:
-    """Decode ``blob`` (whole chunks) into the thread's grow-only output
-    buffer; returns the decoded bytes.  Raises MalformedSnappyData."""
-    data = blob
-    chunks = framing.scan_frames(data)
-    if chunks is None:
-        reason = engine._scan_failure_reason(data, 0)
-        raise MalformedSnappyData(f"invalid framed chunk ({reason})")
-    total = sum(c.uncompressed_len for c in chunks)
+def _out_buf(size: int) -> np.ndarray:
+    """The thread's grow-only output buffer, of at least ``size`` bytes."""
     out_buf = getattr(_tls, "out", None)
-    if out_buf is None or out_buf.size < total:
-        out_buf = _tls.out = np.empty((max(total, 2 * _WINDOW),), dtype=np.uint8)
+    if out_buf is None or out_buf.size < size:
+        out_buf = _tls.out = np.empty((max(size, 2 * _WINDOW),), dtype=np.uint8)
+    return out_buf
+
+
+def decode_window(blob, check_integrity: bool, device: config.DeviceLike) -> Iterator[memoryview]:
+    """Decode ``blob`` (whole chunks) into the thread's output buffer,
+    yielding the decoded bytes in order: the whole window at once on the
+    device backend; on the host backend a piece per re-entry of the native
+    resumable walk, which the buffer bounds (JAX sync.py:137-180).  Each
+    piece is valid until the next.  Raises MalformedSnappyData."""
+    if config.resolve_backend() == "host":
+        out_buf = _out_buf(0)
+        roff = 0
+        while roff < len(blob):
+            r, w, reason = host_codec.framed_resume_decode(
+                blob, roff, out_buf, out_buf.size, check_integrity
+            )
+            if r is None or (r == roff and w == 0):
+                raise MalformedSnappyData(f"framed decode failed ({reason})")
+            yield memoryview(out_buf.data)[:w]
+            roff = r
+        return
+    chunks = framing.scan_frames(blob)
+    if chunks is None:
+        reason = engine._scan_failure_reason(blob, 0)
+        raise MalformedSnappyData(f"invalid framed chunk ({reason})")
+    out_buf = _out_buf(sum(c.uncompressed_len for c in chunks))
     w, reason = engine.framed_uncompress_chunks_into(
-        data, chunks, out_buf, check_integrity, device=device
+        blob, chunks, out_buf, check_integrity, device=device
     )
     if w is None:
         raise MalformedSnappyData(f"framed decode failed ({reason})")
-    return memoryview(out_buf.data)[:w]
+    yield memoryview(out_buf.data)[:w]
 
 
 def uncompress_framed(
@@ -162,9 +184,9 @@ def uncompress_framed(
         at_eof = n_read == 0
         pos = whole_chunks(rmv, avail)
         if pos:
-            decoded = decode_window(rmv[:pos], check_integrity, device)
-            dst.write(decoded)
-            written += len(decoded)
+            for decoded in decode_window(rmv[:pos], check_integrity, device):
+                dst.write(decoded)
+                written += len(decoded)
         tail_len = avail - pos
         if pos and tail_len:
             # bytes() detour: the regions may overlap
