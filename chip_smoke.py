@@ -1,5 +1,6 @@
 """Drive the port's framed, raw and stream-layer paths once on one CUDA
-card and check them, and the same entry points on the host backend.
+card and check them, the same entry points on the host backend, and the
+sharded paths on process groups over that card.
 
     python3 chip_smoke.py
 
@@ -95,11 +96,30 @@ Phases, each reported on its own lines:
               the one-shot masked_crc32c of the whole payload (K1 over
               every SM, its tiles folded by a second launch), equal to the
               host C CRC;
-8. counters — each kernel was launched by its path (4, 5, 6 or 7), the
+10. sharded — (runs after 7, so that 8 and 9 count and time it) the
+              multi-GPU layer (snappy_tpu_torch.parallel) on the 48 MiB
+              payload: (a) a one-rank nccl group on cuda:0 (tcp:// on a
+              free local port): sharded_framed_compress and
+              sharded_raw_compress give the framed-L1 and raw-L1 digests,
+              sharded_framed_uncompress the payload, the error-order cases
+              of phase 4 plus a bad verbatim CRC after a bad compressed
+              chunk (`crc`, the JAX mesh's order, where the engine says
+              `invalid`) and check_integrity=False, then
+              compress_framed_span / uncompress_framed_span on the one
+              rank; (b) two gloo ranks on the same card (nccl refuses two
+              ranks on one GPU), spawned processes that each launch their
+              kernels on cuda:0: the same digests and the payload on every
+              rank, the header and both span blobs in rank order give the
+              framed-L1 digest, the decoded spans at their offsets the
+              payload; a rank that fails or outlives 600 s fails the phase;
+8. counters — each kernel was launched by its path (4, 5, 6, 7 or 10), the
               counts set to 0 just before each path and read just after;
               every count reads 0 across the host phase (6b);
               for scan mode, K5's pass-2 and pass-1 launches, K4's
               launches after `unsupported` and the steps pass 2 walked;
+              for the sharded paths, K1's, K2's and K3's launches on the
+              nccl rank and on each gloo rank, each above 0 on a rank that
+              holds frames;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
@@ -118,7 +138,11 @@ Phases, each reported on its own lines:
               (testing/decode_layouts.measure: the row in shared memory,
               or written in place in global memory); then the end-to-end
               rates once more on the host backend, each beside the device
-              backend's, with the CPU model and os.cpu_count().
+              backend's, with the CPU model and os.cpu_count(); the sharded
+              framed encode, framed decode and raw encode on the nccl rank
+              beside the engine's call on one device (engine, sharded,
+              sharded, engine), each gloo rank's times, and each
+              all-gather's bytes, bytes per chunk and ms.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -127,8 +151,9 @@ main-path shape), ``plain_ms`` (the plain version on the small set),
 ``ms_small`` (the kernel on that same set), ``bound_ms`` (the larger of the
 bytes the call moves over 3.35 TB/s and its int8 operations over 1,979
 TOP/s, from this run's inputs) with ``bound_by``, and ``library_ms`` (null:
-no single PyTorch call computes any of these functions).  The last line is the JSON
-result.  Exits nonzero, printing no result, where torch.cuda is not
+no single PyTorch call computes any of these functions); K1, K2 and K3 also
+carry ``sharded_launches`` (the nccl rank's and each gloo rank's).  The
+last line is the JSON result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
 """
 
@@ -140,16 +165,20 @@ import contextlib
 import hashlib
 import io
 import json
+import multiprocessing
 import os
 import platform
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 KERNELS = {
     # name: (CUDA source, the TPU kernel it replaces, its main path)
@@ -180,6 +209,10 @@ DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
 K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate, dense int8 tensor-core peak
 INT8_OPS_PER_S = 1.979e15
+SHARDED = ("crc32c", "decode_chunks", "encode_blocks")  # the kernels of the sharded paths
+SHARDED_WORLD = 2  # gloo ranks on the one card in phase 10 (b)
+GROUP_TIMEOUT_S = 300  # of every process group's collectives
+RANK_WAIT_S = 600  # for the ranks of phase 10 (b)
 
 
 def bound(nbytes: int, int8_ops: int = 0):
@@ -275,6 +308,105 @@ def block_batch(blocks, dev):
         rows[k, : len(b)] = np.frombuffer(b, dtype=np.uint8)
     lens = torch.tensor([len(b) for b in blocks], dtype=torch.int32)
     return torch.from_numpy(rows).to(dev), lens.to(dev)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gathers(trace) -> list:
+    """A mesh's trace as (name, rows, bytes sent, ms) per all-gather."""
+    return [(g.name, g.rows, g.sent, g.ms) for g in trace]
+
+
+def sharded_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 10 (b), in a spawned process: rank ``rank`` of a gloo group of
+    ``world`` ranks that all launch their kernels on cuda:0.  Runs the
+    sharded paths and the span API on the 48 MiB payload, counts its K1, K2
+    and K3 launches, times the sharded paths, and writes its results and
+    its span bytes under ``out``."""
+    from snappy_tpu_torch.ops import crc32c, decode_chunks, encode_blocks
+    from snappy_tpu_torch.parallel import mesh as pmesh
+    from snappy_tpu_torch.parallel import multihost
+    from snappy_tpu_torch.testing import payloads
+
+    dev = torch.device("cuda:0")
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                         timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    m = pmesh.default_mesh(world, device=dev)
+    payload = payloads.mixed_payload()
+    crc32c.LAUNCHES = decode_chunks.LAUNCHES = encode_blocks.LAUNCHES = 0
+    framed = pmesh.sharded_framed_compress(payload, m)
+    raw = pmesh.sharded_raw_compress(payload, m)
+    back = pmesh.sharded_framed_uncompress(framed, m)
+    launches = {"crc32c": crc32c.LAUNCHES, "decode_chunks": decode_chunks.LAUNCHES,
+                "encode_blocks": encode_blocks.LAUNCHES}
+    span = len(payload) // (world * 65536) * 65536
+    blob, off, total = multihost.compress_framed_span(
+        payload[:span] if rank == 0 else payload[span:], device=dev)
+    part, out_off, total_out, span_reason = multihost.uncompress_framed_span(framed, device=dev)
+    paths = (("sharded_framed_compress", lambda: pmesh.sharded_framed_compress(payload, m)),
+             ("sharded_framed_uncompress", lambda: pmesh.sharded_framed_uncompress(framed, m)),
+             ("sharded_raw_compress", lambda: pmesh.sharded_raw_compress(payload, m)))
+    times = {name: e2e(fn, 3) for name, fn in paths}
+    traced = []  # (path, its all-gathers) of one call each
+    for name, fn in paths:
+        m.trace = []
+        fn()
+        traced.append((name, gathers(m.trace)))
+    with open(os.path.join(out, f"blob_{rank}"), "wb") as f:
+        f.write(blob)
+    with open(os.path.join(out, f"part_{rank}"), "wb") as f:
+        f.write(part or b"")
+    with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+        json.dump({
+            "framed_sha256": hashlib.sha256(framed).hexdigest(),
+            "raw_sha256": hashlib.sha256(raw).hexdigest(),
+            "decoded": back[1] == "ok" and back[0] == payload, "reason": back[1],
+            "launches": launches, "span": [off, total], "part_at": [out_off, total_out, span_reason],
+            "times": times, "gathers": traced,
+            "frames": int(np.diff(pmesh.shard_bounds(-(-len(payload) // 65536), world))[rank]),
+        }, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_sharded_ranks(world: int, out: str) -> list:
+    """Phase 10 (b): spawn ``world`` ranks of ``sharded_rank`` (spawn, since
+    CUDA is up in this process) and return each rank's results.  Raises if
+    a rank fails or is still running after RANK_WAIT_S; kills every rank
+    that is left."""
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, port, out)) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + RANK_WAIT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            raise RuntimeError(f"sharded: ranks {hung} of {world} still running after {RANK_WAIT_S} s")
+        failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f"sharded: ranks failed (rank, exit code): {failed}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank_{r}.json")) as f:
+            res = json.load(f)
+        for name in ("blob", "part"):
+            with open(os.path.join(out, f"{name}_{r}"), "rb") as f:
+                res[name] = f.read()
+        results.append(res)
+    return results
 
 
 def main() -> None:
@@ -929,6 +1061,76 @@ def main() -> None:
     assert one_shot == payload_crc, ("one-shot masked_crc32c", one_shot, payload_crc)
     print(f"one-shot CRC: masked_crc32c of the {len(payload)}-byte payload equals the host C CRC")
 
+    # 10. sharded (before 8 and 9, which count and time it) -------------------
+    # (a) a one-rank nccl group on this card
+    from snappy_tpu_torch.parallel import mesh as pmesh
+    from snappy_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                         timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+    world1 = pmesh.default_mesh(1, device=dev)
+    assert world1.group is not None and world1.collective_device == dev, "a one-rank nccl mesh"
+    reset_counts()
+    sh_framed = pmesh.sharded_framed_compress(payload, world1)
+    sh_raw = pmesh.sharded_raw_compress(payload, world1)
+    sh_back = pmesh.sharded_framed_uncompress(sh_framed, world1)
+    sharded_launches = counts()
+    for name, got_s, pinned in (("sharded_framed_compress", sh_framed, payloads.GOLDEN_SHA256),
+                                ("sharded_raw_compress", sh_raw, payloads.RAW_L1_SHA256)):
+        assert sha(got_s) == pinned, ("sharded", name, sha(got_s))
+    assert sh_back == (payload, "ok"), ("sharded_framed_uncompress", sh_back[1])
+    # the JAX mesh's error order: every verbatim CRC before any compressed
+    # chunk, so a bad verbatim CRC after a bad compressed chunk wins there,
+    # where the engine reports the earlier chunk
+    later = next(k for k in range(6, len(data_chunks)) if data_chunks[k].id == C.CHUNK_UNCOMPRESSED)
+    order = corrupt(stream, data_chunks[later], a)
+    assert engine.framed_uncompress(order, device=dev) == (None, "invalid"), "engine order case"
+    for name, s, check_integrity, want in (
+            ("crc@5 + invalid@9", corrupt(stream, a, b), True, "crc"),
+            ("invalid@5 + crc@9", corrupt(stream, b, a), True, "invalid"),
+            (f"invalid@5 + verbatim crc@{later}", order, True, "crc"),
+            ("crc@5, check_integrity=False", bad, False, "ok")):
+        got_r = pmesh.sharded_framed_uncompress(s, world1, check_integrity)
+        assert got_r[1] == want and (got_r[0] == payload if want == "ok" else got_r[0] is None), \
+            ("sharded error order", name, got_r[1])
+    blob, off, total = multihost.compress_framed_span(payload, device=dev)
+    assert (C.FRAMING_HEADER + blob, off, total) == (stream, len(C.FRAMING_HEADER), len(stream)), \
+        "compress_framed_span on one rank"
+    assert multihost.uncompress_framed_span(stream, device=dev) == (payload, 0, len(payload), "ok"), \
+        "uncompress_framed_span on one rank"
+    print(f"sharded: one nccl rank on {dev}: sharded_framed_compress and sharded_raw_compress of the "
+          f"payload equal the pinned framed-L1 / raw-L1 digests, sharded_framed_uncompress returns the "
+          f"payload; error order (crc@5 + invalid@9 -> crc; invalid@5 + crc@9 -> invalid; invalid@5 + "
+          f"verbatim crc@{later} -> crc, the JAX mesh's order, where engine.framed_uncompress says "
+          f"invalid); check_integrity=False accepts the bad CRC; compress_framed_span and "
+          f"uncompress_framed_span give the stream and the payload")
+    # (b) two gloo ranks on this card, in spawned processes
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    with tempfile.TemporaryDirectory() as td:
+        ranks = run_sharded_ranks(SHARDED_WORLD, td)
+    for r, res in enumerate(ranks):
+        assert res["framed_sha256"] == payloads.GOLDEN_SHA256, ("rank", r, "framed", res["framed_sha256"])
+        assert res["raw_sha256"] == payloads.RAW_L1_SHA256, ("rank", r, "raw", res["raw_sha256"])
+        assert res["decoded"], ("rank", r, "sharded_framed_uncompress", res["reason"])
+        assert res["span"][1] == ranks[0]["span"][1] and res["part_at"][2] == "ok", ("rank", r, "spans")
+    offsets = [len(C.FRAMING_HEADER)] + [len(C.FRAMING_HEADER) + len(ranks[0]["blob"])]
+    assert [res["span"][0] for res in ranks] == offsets, [res["span"] for res in ranks]
+    spans = C.FRAMING_HEADER + b"".join(res["blob"] for res in ranks)
+    assert len(spans) == ranks[0]["span"][1] and sha(spans) == payloads.GOLDEN_SHA256, \
+        "the span blobs in rank order"
+    joined = bytearray(len(payload))
+    for res in ranks:
+        out_off, total_out, _ = res["part_at"]
+        assert total_out == len(payload)
+        joined[out_off : out_off + len(res["part"])] = res["part"]
+    assert bytes(joined) == payload, "the decoded spans at their offsets"
+    print(f"sharded: {SHARDED_WORLD} gloo ranks on {dev} (compute mode {mode}), frames per rank "
+          f"{[res['frames'] for res in ranks]}: every rank's sharded_framed_compress and "
+          f"sharded_raw_compress equal the pinned digests and its sharded_framed_uncompress returns "
+          f"the payload; the header and the compress_framed_span blobs in rank order give the pinned "
+          f"framed-L1 digest, and the uncompress_framed_span parts at their offsets the payload")
+
     # 8. counters ------------------------------------------------------------
     path_launches = {"framed": framed_launches, "raw": raw_launches,
                      "streams": stream_launches, "host": host_launches, "fused_crc": fused_launches,
@@ -952,6 +1154,16 @@ def main() -> None:
     assert fused_launches["crc32c_mma"] > 0, "the fused CRC path never launched crc32c_mma"
     assert one_shot_launches["crc32c"] == 1, ("the one-shot CRC's launches of crc32c", one_shot_launches)
     launches = {name: path_launches[p][name] for name, (_, _, p) in KERNELS.items()}
+    # the sharded paths (phase 10): one nccl rank, then each gloo rank
+    print(f"counters: sharded path, one nccl rank {sharded_launches}")
+    for r, res in enumerate(ranks):
+        print(f"counters: sharded path, gloo rank {r} of {SHARDED_WORLD} ({res['frames']} frames) "
+              f"{res['launches']}")
+    for name in SHARDED:
+        assert sharded_launches[name] > 0, f"the sharded path never launched {name}"
+        for r, res in enumerate(ranks):
+            assert res["frames"] == 0 or res["launches"][name] > 0, \
+                f"gloo rank {r} of the sharded path never launched {name}"
 
     # 9. timings -------------------------------------------------------------
     nf = payloads.MAIN_PATH_FRAMES
@@ -1313,6 +1525,48 @@ def main() -> None:
         best, med = e2e(fn, 3)
         print(f"timing: host backend stage: {name}: best {best * 1e3:.2f} ms, median {med * 1e3:.2f} ms "
               f"{host_tag}")
+
+    # the sharded paths of phase 10 (a), each beside the engine's call on one
+    # device, in turns (engine, sharded, sharded, engine); then one traced
+    # call of each, for the all-gathers
+    sharded_paths = (
+        ("sharded_framed_compress", "encode_framed", lambda: api.encode_framed(payload, device=dev),
+         lambda: pmesh.sharded_framed_compress(payload, world1)),
+        ("sharded_framed_uncompress", "decode_framed", lambda: api.decode_framed(stream, device=dev),
+         lambda: pmesh.sharded_framed_uncompress(stream, world1)),
+        ("sharded_raw_compress", "encode", lambda: api.encode(payload, device=dev),
+         lambda: pmesh.sharded_raw_compress(payload, world1)),
+    )
+    for name, single_name, single, sharded in sharded_paths:
+        t = [e2e(single), e2e(sharded), e2e(sharded), e2e(single)]
+        print(f"timing: {name}, one nccl rank, of {len(payload)} bytes: best / median "
+              f"{t[1][0] * 1e3:.2f} / {t[1][1] * 1e3:.2f} and {t[2][0] * 1e3:.2f} / {t[2][1] * 1e3:.2f} ms; "
+              f"{single_name} on one device {t[0][0] * 1e3:.2f} / {t[0][1] * 1e3:.2f} and "
+              f"{t[3][0] * 1e3:.2f} / {t[3][1] * 1e3:.2f} ms; sharded / engine (best) "
+              f"{min(t[1][0], t[2][0]) / min(t[0][0], t[3][0]):.3f} {tag}")
+    traced = {"one nccl rank": (world1.size, [])}
+    for name, _, _, sharded in sharded_paths:
+        world1.trace = []
+        sharded()
+        traced["one nccl rank"][1].append((name, gathers(world1.trace)))
+    world1.trace = None
+    for r, res in enumerate(ranks):
+        traced[f"gloo rank {r} of {SHARDED_WORLD}"] = (SHARDED_WORLD, res["gathers"])
+        for name, (best, med) in res["times"].items():
+            print(f"timing: sharded, gloo rank {r} of {SHARDED_WORLD} on one card (not compared: both "
+                  f"ranks share it): {name} best {best * 1e3:.2f} ms, median {med * 1e3:.2f} ms {tag}")
+    for who, (size, by_path) in traced.items():
+        for path_name, trace in by_path:
+            for name, n_rows, sent, ms in trace:
+                share = -(-n_rows // size)
+                print(f"timing: all-gather, {who}, {path_name}: {name} of {n_rows} chunks: {sent} "
+                      f"bytes sent ({sent / max(share, 1):.1f} per chunk of the largest share, "
+                      f"{share} chunks), {ms:.4f} ms {tag}")
+    dist.destroy_process_group()
+    for row in rows:
+        if row["name"] in SHARDED:
+            row["sharded_launches"] = {"nccl_world_1": sharded_launches[row["name"]],
+                                       "gloo_world_2": [res["launches"][row["name"]] for res in ranks]}
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -104,13 +104,19 @@ def raw_compress_batch(
     )
     # Each row's bytes, concatenated in row order on the device: one copy
     # of exactly the encoded bytes to the host.
-    keep = torch.arange(enc.shape[1], device=dev) < enc_len[:, None]
-    streams = enc.masked_select(keep).cpu().numpy()
+    streams = _pack_rows(enc, enc_len).cpu().numpy()
     ends = np.cumsum(enc_len.cpu().numpy().astype(np.int64))
     for i, r0, k in plan:
         lo = int(ends[r0 - 1]) if r0 else 0
         results[i] = varint.encode_uint32(len(datas[i])) + streams[lo : ends[r0 + k - 1]].tobytes()
     return results
+
+
+def _pack_rows(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The first ``lens[k]`` bytes of each row, end to end, on the rows'
+    device."""
+    keep = torch.arange(rows.shape[1], device=rows.device) < lens[:, None]
+    return rows.masked_select(keep)
 
 
 def _declared(data: bytes, max_size: int) -> Tuple[Optional[int], int, str]:
@@ -337,6 +343,38 @@ def masked_crc32c(
     return int(crc32c.masked_crc32c_chunks(row.to(dev), lens.to(dev))[0])
 
 
+def _decode_bodies(
+    arr: np.ndarray, bodies: List[Tuple[int, int]], declared_h: np.ndarray,
+    check_integrity: bool, dev: torch.device,
+):
+    """One K2 launch over the tag streams ``arr[lo:hi]`` of ``bodies`` into
+    64 KiB rows, then (``check_integrity``) one K1 launch over the decoded
+    rows.  ``declared_h``: int32, one per body.  Returns (ok, out, masked
+    CRCs or None, declared) on ``dev``."""
+    offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([hi - lo for lo, hi in bodies])
+    comp = np.concatenate([arr[lo:hi] for lo, hi in bodies] + [arr[:0]])
+    declared = torch.from_numpy(declared_h).to(dev)
+    out = torch.empty((len(bodies), _BLOCK), dtype=torch.uint8, device=dev)
+    ok, _written = decode_chunks.decode_chunks(
+        torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
+        declared, out, host_values=(offsets, declared_h),
+    )
+    crcs = crc32c.masked_crc32c_chunks(out, declared) if check_integrity else None
+    return ok, out, crcs, declared
+
+
+def _crc_payloads(arr: np.ndarray, spans: List[Tuple[int, int]], dev: torch.device) -> torch.Tensor:
+    """One K1 launch over the payloads ``arr[lo:hi]`` of ``spans`` (each at
+    most 64 KiB), staged in zero-padded rows.  Returns uint32 on ``dev``."""
+    rows = torch.zeros((len(spans), _BLOCK), dtype=torch.uint8)
+    rows_h = rows.numpy()
+    for k, (lo, hi) in enumerate(spans):
+        rows_h[k, : hi - lo] = arr[lo:hi]
+    lens = torch.tensor([hi - lo for lo, hi in spans], dtype=torch.int32)
+    return crc32c.masked_crc32c_chunks(rows.to(dev), lens.to(dev))
+
+
 def _framed_uncompress_device(
     data: bytes,
     chunks: List[framing.ChunkInfo],
@@ -397,20 +435,13 @@ def _framed_uncompress_device(
             err = (idx, reason)
 
     if comp_jobs:
-        n = len(comp_jobs)
-        offsets = np.zeros(n + 1, dtype=np.int64)
-        offsets[1:] = np.cumsum([hi - lo for _, _, lo, hi, _, _ in comp_jobs])
-        comp = np.concatenate([arr[lo:hi] for _, _, lo, hi, _, _ in comp_jobs])
-        declared_h = np.array([j[4] for j in comp_jobs], dtype=np.int32)
-        declared = torch.from_numpy(declared_h).to(dev)
-        out = torch.empty((n, _BLOCK), dtype=torch.uint8, device=dev)
-        ok, _written = decode_chunks.decode_chunks(
-            torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
-            declared, out, host_values=(offsets, declared_h),
+        ok, out, crcs, _ = _decode_bodies(
+            arr, [(lo, hi) for _, _, lo, hi, _, _ in comp_jobs],
+            np.array([j[4] for j in comp_jobs], dtype=np.int32), check_integrity, dev,
         )
         ok = ok.cpu().numpy()
         if check_integrity:
-            crcs = crc32c.masked_crc32c_chunks(out, declared).cpu().numpy()
+            crcs = crcs.cpu().numpy()
         out_h = out.cpu().numpy()
         for k, (idx, off, _, _, decl, stored) in enumerate(comp_jobs):
             if not ok[k]:
@@ -425,13 +456,7 @@ def _framed_uncompress_device(
     # current earliest error can still matter.
     ucrc_jobs = [j for j in ucrc_jobs if j[0] < err[0]]
     if ucrc_jobs:
-        payloads = torch.zeros((len(ucrc_jobs), _BLOCK), dtype=torch.uint8)
-        rows = payloads.numpy()
-        for k, (_, lo, hi, _) in enumerate(ucrc_jobs):
-            rows[k, : hi - lo] = arr[lo:hi]
-        lens = torch.tensor([hi - lo for _, lo, hi, _ in ucrc_jobs], dtype=torch.int32)
-        got = crc32c.masked_crc32c_chunks(payloads.to(dev), lens.to(dev))
-        got = got.cpu().numpy()
+        got = _crc_payloads(arr, [(lo, hi) for _, lo, hi, _ in ucrc_jobs], dev).cpu().numpy()
         for k, (idx, _, _, stored) in enumerate(ucrc_jobs):
             if int(got[k]) != stored:
                 consider(idx, "crc")
