@@ -112,6 +112,27 @@ Phases, each reported on its own lines:
               rank, the header and both span blobs in rank order give the
               framed-L1 digest, the decoded spans at their offsets the
               payload; a rank that fails or outlives 600 s fails the phase;
+11. guards  — (runs after 10, before 8 and 9) the card's stand-in for
+              compute-sanitizer, which does not run on its machine
+              (testing/guards.py): each kernel through its wrapper's
+              _launch on phase 3's cases (the smoke blocks, the CRC
+              differential's rows at every start offset and the payload's
+              prefixes as single rows, K6's batches and edge lengths, the
+              encoder differential's blocks at both levels, the chunk,
+              big-window, stream, window and scan cases, K4 and K5 on both
+              routes), the 600 mutation streams each alone (K2 at both
+              widths where they fit, K4 and K5 on both routes) and the
+              main-path shapes (768 x 64 KiB for K1, K2, K3 and K6, the
+              48 MiB level-1 stream on K4's and K5's window routes): every
+              buffer a kernel writes is a view inside 4 KiB guard bands of
+              a fixed pattern, unchanged after the launch, and every buffer
+              it reads has a 4 KiB tail guard filled with 0x00, 0xFF and
+              seeded random bytes in turn, with the same result each time;
+              then a raw stream declared 2^31 + 3 * 65536 + 5 bytes long (runs
+              and period-8 data, a body of 139 MB) on K4's and K5's window
+              routes (K2 over 32,772 windows), input guards 0x00 and 0xFF:
+              ok, and the SHA-256 of the output equal to the host C
+              decoder's, or it fails;
 8. counters — each kernel was launched by its path (4, 5, 6, 7 or 10), the
               counts set to 0 just before each path and read just after;
               every count reads 0 across the host phase (6b);
@@ -119,7 +140,8 @@ Phases, each reported on its own lines:
               launches after `unsupported` and the steps pass 2 walked;
               for the sharded paths, K1's, K2's and K3's launches on the
               nccl rank and on each gloo rank, each above 0 on a rank that
-              holds frames;
+              holds frames; the guard phase's launches, counted by the
+              wrappers, equal its guarded launches;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
@@ -151,7 +173,8 @@ main-path shape), ``plain_ms`` (the plain version on the small set),
 ``ms_small`` (the kernel on that same set), ``bound_ms`` (the larger of the
 bytes the call moves over 3.35 TB/s and its int8 operations over 1,979
 TOP/s, from this run's inputs) with ``bound_by``, and ``library_ms`` (null:
-no single PyTorch call computes any of these functions); K1, K2 and K3 also
+no single PyTorch call computes any of these functions), and ``guarded``
+(its launches inside the guard bands of phase 11); K1, K2 and K3 also
 carry ``sharded_launches`` (the nccl rank's and each gloo rank's).  The
 last line is the JSON result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
@@ -213,6 +236,7 @@ SHARDED = ("crc32c", "decode_chunks", "encode_blocks")  # the kernels of the sha
 SHARDED_WORLD = 2  # gloo ranks on the one card in phase 10 (b)
 GROUP_TIMEOUT_S = 300  # of every process group's collectives
 RANK_WAIT_S = 600  # for the ranks of phase 10 (b)
+LONG_STREAM = (1 << 31) + 3 * 65536 + 5  # the guard phase's declared length above 2^31
 
 
 def bound(nbytes: int, int8_ops: int = 0):
@@ -545,6 +569,7 @@ def main() -> None:
             cases += [(s[:cut], n) for cut in (1, len(s) // 3, len(s) // 2, len(s) - 1)]
     comp, offsets = ragged([c for c, _ in cases])
     declared = torch.tensor([n for _, n in cases], dtype=torch.int32)
+    chunk_cases = (comp, offsets, declared)  # for phase 11
     out = torch.empty((len(cases), 65536), dtype=torch.uint8, device=dev)
     ok, written = decode_chunks.decode_chunks(comp.to(dev), offsets.to(dev), declared.to(dev), out)
     pout = torch.empty((len(cases), 65536), dtype=torch.uint8)
@@ -1131,12 +1156,105 @@ def main() -> None:
           f"the payload; the header and the compress_framed_span blobs in rank order give the pinned "
           f"framed-L1 digest, and the uncompress_framed_span parts at their offsets the payload")
 
+    # 11. guards (after 10, before 8 and 9) ------------------------------------
+    # the card's stand-in for compute-sanitizer: each kernel through its
+    # wrapper's _launch, every buffer it writes inside guard bands and every
+    # buffer it reads with a tail guard filled 0x00, 0xFF and at random
+    from snappy_tpu_torch.testing import guards
+
+    t_guard = time.perf_counter()
+    reset_counts()
+    routes_before = routes()
+    guard = guards.Guard(dev)
+    frames_np, lens_np = frames.cpu().numpy(), lens.cpu().numpy()
+    guard.crc32c(frames_np.reshape(-1), 0, 65536, len(lens_np), 65536, lens_np, "smoke blocks")
+    guard.crc32c_mma(frames_np, lens_np, "smoke blocks")
+    for level in (1, 2):
+        guard.encode_blocks(frames_np, lens_np, level, "smoke blocks")
+    rnd = payloads.Rand(9)  # phase 3's CRC differential: the same rows
+    for off in range(16):
+        stride = 65536 + 16 + int(rnd.ints(0, 16, 1)[0])
+        buf = rnd.bytes(CRC_DIFFERENTIAL * stride + 64)
+        d_lens = rnd.ints(0, 65537, CRC_DIFFERENTIAL)
+        d_lens[:7] = [0, 1, 15, 16, 17, 65535, 65536]
+        guard.crc32c(buf, off, stride, CRC_DIFFERENTIAL, 65536, d_lens, f"offset {off}")
+    for n in long_lens + [mid]:
+        for off in (0, 3):
+            m = min(n, len(payload) - off)
+            guard.crc32c(payload_d[off : off + m], 0, m, 1, m, [m], f"one row of {m} at {off}")
+    for n_sw, sw_lens in sweep:
+        rows_sw = pool_h[:n_sw].copy()
+        rows_sw[np.arange(65536)[None, :] >= sw_lens[:, None]] = 0
+        guard.crc32c_mma(rows_sw, sw_lens, f"N = {n_sw}")
+    del rows_sw
+    diff_rows = np.zeros((len(diff_blocks), 65536), dtype=np.uint8)
+    for k, b in enumerate(diff_blocks):
+        diff_rows[k, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+    diff_lens = np.array([len(b) for b in diff_blocks], dtype=np.int32)
+    for level in (1, 2):
+        guard.encode_blocks(diff_rows, diff_lens, level, "encoder differential")
+    del diff_rows
+    guard.decode_chunks(*chunk_cases, 65536, "smoke, malformed and truncated streams")
+    guard.decode_chunks(bw_comp, bw_offs, bw_decl, BIG, "big-window cases")
+    for k, (body, m, _) in enumerate(st_cases + win_cases):
+        guard.stream_routes(body, m, f"stream case {k}")
+    for k, (body, m) in enumerate(sc_cases):
+        guard.decode_stream_scan(body, m, None, f"scan case {k}")
+        offs = decode_stream.window_index(body, m) if m > 0 else None
+        if offs is not None:
+            guard.decode_stream_scan(body, m, offs.numpy(), f"scan case {k}")
+    for k, (body, m, offs) in enumerate(forced):
+        guard.decode_stream_scan(body, m, offs, f"forced index {k}")
+    m_guarded = guard.chunk_streams(m_streams, "mutation stream")
+    small_cases = dict(guard.cases)
+    # the main-path shapes: 768 x 64 KiB for K1, K2, K3 and K6, and the
+    # 48 MiB level-1 stream on K4's and K5's window routes
+    nf = payloads.MAIN_PATH_FRAMES
+    main_rows = payload_d[: nf * 65536].view(nf, 65536)
+    main_lens = np.full(nf, 65536, dtype=np.int32)
+    guard.crc32c(payload_d[: nf * 65536], 0, 65536, nf, 65536, main_lens, "main path")
+    guard.crc32c_mma(main_rows, main_lens, "main path")
+    for level in (1, 2):
+        guard.encode_blocks(main_rows, main_lens, level, "main path")
+    g_body = payloads.body_of(raw1)
+    g_offs = decode_stream.window_index(g_body, len(payload)).numpy()
+    guard.decode_chunks(g_body, g_offs[: nf + 1], main_lens, 65536, "main path")
+    guard.decode_stream(g_body, len(payload), g_offs, "the 48 MiB stream")
+    guard.decode_stream_scan(g_body, len(payload), g_offs, "the 48 MiB stream")
+    del main_rows
+    # declared lengths above 2^31: K2 over more than 32,768 windows
+    long_info = guards.long_stream(guard, LONG_STREAM)
+    guard_launches = counts()
+    guard_routes = tuple(a - b for a, b in zip(routes(), routes_before))
+    guard_s = time.perf_counter() - t_guard
+    torch.cuda.empty_cache()
+    print(f"guards: {sum(guard.cases.values())} cases ({small_cases} of phase 3 and {m_guarded} of "
+          f"the {len(m_streams)} mutation streams, those with a declared length up to 64 MiB, then the "
+          f"main-path shapes and the long stream), each once an input guard of "
+          f"{[f if isinstance(f, str) else hex(f) for f in guards.FILLS]} (the long stream 0x00 "
+          f"and 0xFF), every buffer a kernel writes inside {guards.GUARD}-byte guard bands: "
+          f"guarded launches {dict(guard.guarded)}; {len(guard.failures)} failures "
+          f"{guard.failures[:6]}; {guard_s:.1f} s {tag}")
+    print(f"guards: long stream: {long_info} {tag}")
+    assert not guard.failures, ("guard phase", guard.failures[:20])
+    for name in KERNELS:
+        assert guard.guarded[name] > 0, f"the guard phase never launched {name}"
+
     # 8. counters ------------------------------------------------------------
     path_launches = {"framed": framed_launches, "raw": raw_launches,
                      "streams": stream_launches, "host": host_launches, "fused_crc": fused_launches,
                      "one_shot": one_shot_launches}
     for name, got_c in path_launches.items():
         print(f"counters: {name} path {got_c}")
+    # every guarded launch of phase 11 went through its wrapper's counter
+    print(f"counters: guard phase {guard_launches}, K4 window route and walk "
+          f"{guard_routes[:2]}")
+    g_k1 = guard.guarded["crc32c"] + guard.guarded["crc32c_long"]
+    assert guard_launches["crc32c"] == g_k1 and sum(guard_routes[:2]) == guard.guarded["decode_stream"], \
+        ("guard phase counters", guard_launches, guard_routes, dict(guard.guarded))
+    for name in ("decode_chunks", "decode_chunks_big", "encode_blocks", "encode_blocks_l2",
+                 "decode_stream_scan", "crc32c_mma"):
+        assert guard_launches[name] == guard.guarded[name], ("guard phase counters", name)
     print(f"counters: decode of the 48 MiB stream (K4 window route, K4 walk, windows decoded "
           f"again) {decode_route}")
     print(f"counters: the stream path's scan mode (K5 pass-2 launches, K5 pass-1 launches of K2, "
@@ -1398,7 +1516,8 @@ def main() -> None:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                     "ms_small": ms_small, "shape": shape, "small_set": small_set})
+                     "ms_small": ms_small, "shape": shape, "small_set": small_set,
+                     "guarded": guard.guarded[name]})
         if name == "decode_stream":
             rows[-1].update({"pass1_ms": pass1_ms, "pass2_ms": pass2_ms, "index_ms": index_ms,
                              "walk_ms": walk_ms, "walk_over_ms": walk_ms / ms})

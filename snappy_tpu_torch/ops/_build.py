@@ -7,7 +7,8 @@ JAX counterpart: none; ``snappy_tpu/ops/host_codec._build`` is the model
 process per source, all at once, links them into one shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds) and
 loads it with ctypes.  ``twin_lib()`` compiles the same
-sources with g++ into the CPU twin that the tests load; the port's path
+sources with g++ into the CPU twin that the tests load (with ASan and
+UBSan where ``SNAPPY_TPU_TORCH_SANITIZE`` is set); the port's path
 never uses it.  Both go to ``build/snappy_tpu_torch/`` at the root of the
 checkout, named by a hash of the sources and the commands, under a file
 lock so that concurrent test workers do not race the build.
@@ -26,7 +27,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -65,22 +66,26 @@ def _nvcc() -> str:
 
 def _build(
     name: str,
-    compile_cmd: List[str],
+    compile_cmd: Union[List[str], List[List[str]]],
     link_cmd: List[str],
     sources: Sequence[Path],
     headers: Sequence[Path] = (),
     salt: str = "",
+    suffix: str = ".so",
 ) -> Path:
     """Build ``sources`` into a shared library in BUILD_DIR, unless one of
     the same sources, headers, commands and ``salt`` (what else the build
     depends on, such as the CPU that ``-march=native`` reads) is there:
     each source compiles in its own process (``compile_cmd -c src -o
-    obj``), all started at once, then ``link_cmd objs -o lib`` joins them.  The compilers' output
-    goes to a ``.log`` beside the library."""
+    obj``; ``compile_cmd`` may also be a list of commands, one a source),
+    all started at once, then ``link_cmd objs -o lib`` joins them (an
+    executable, with ``suffix`` "" and no ``-shared``).  The compilers'
+    output goes to a ``.log`` beside the result."""
     digest = hashlib.sha256(repr((compile_cmd, link_cmd)).encode() + salt.encode())
     for f in list(sources) + list(headers):
         digest.update(f.read_bytes())
-    so = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}{suffix}"
+    cmds = compile_cmd if compile_cmd and isinstance(compile_cmd[0], list) else [compile_cmd] * len(sources)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -89,10 +94,10 @@ def _build(
                 objs = [str(Path(td) / f"{k}_{src.stem}.o") for k, src in enumerate(sources)]
                 procs = [
                     subprocess.Popen(
-                        compile_cmd + ["-c", str(src), "-o", obj],
+                        cmd + ["-c", str(src), "-o", obj],
                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                     )
-                    for src, obj in zip(sources, objs)
+                    for cmd, src, obj in zip(cmds, sources, objs)
                 ]
                 log = "".join(p.communicate()[0] for p in procs)
                 rc = max(p.returncode for p in procs)
@@ -103,7 +108,7 @@ def _build(
                     )
                     log += link.stdout + link.stderr
                     rc = link.returncode
-                so.with_suffix(".log").write_text(log)
+                so.with_name(so.name.removesuffix(suffix) + ".log").write_text(log)
                 if rc != 0:
                     raise RuntimeError(f"building {name} failed ({rc}):\n" + log[-4000:])
                 os.replace(tmp, so)
@@ -155,9 +160,30 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel: CUDA error {rc} at launch")
 
 
+def twin_cmds(*extra: str) -> Tuple[List[str], List[str]]:
+    """The compile and link commands of a CPU twin build: g++ -O2, the
+    sanitizer flags of ``host_codec.sanitize_flags()`` (set by
+    ``SNAPPY_TPU_TORCH_SANITIZE``) and ``extra``."""
+    from .host_codec import sanitize_flags
+
+    san = sanitize_flags()
+    return ["g++", "-std=c++17", "-O2", "-fPIC", *san, *extra], ["g++", "-shared", *san]
+
+
+def twin_path(lanes_down: bool = False) -> Path:
+    """Build the CPU twin of the kernel sources unless it is there; its
+    path.  ``lanes_down`` runs each warp's lanes 31 .. 0
+    (``-DSTPU_TWIN_REVERSE_LANES``); a sanitized build's name ends in
+    ``_san``."""
+    from .host_codec import sanitize_flags
+
+    cmd, link = twin_cmds("-x", "c++", *(["-DSTPU_TWIN_REVERSE_LANES"] if lanes_down else []))
+    name = "twin_cpu" + ("_lanes_down" if lanes_down else "") + ("_san" if sanitize_flags() else "")
+    return _kernel_build(name, cmd, link)
+
+
 @functools.cache
-def twin_lib() -> ctypes.CDLL:
-    """The CPU twin of the same sources (g++), for the tests only."""
-    cmd = ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++"]
-    so = _kernel_build("twin_cpu", cmd, ["g++", "-shared"])
-    return _load(so, "stpu_twin_", with_stream=False)
+def twin_lib(lanes_down: bool = False) -> ctypes.CDLL:
+    """The CPU twin of the same sources (g++), lanes up or down, for the
+    tests only."""
+    return _load(twin_path(lanes_down), "stpu_twin_", with_stream=False)

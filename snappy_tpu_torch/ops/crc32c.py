@@ -18,7 +18,7 @@ matter, so callers need not zero it.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,9 +136,10 @@ def masked_crc32c_chunks(
 
 
 def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
-            nt_max: int) -> None:
+            nt_max: int, tile_regs: Optional[torch.Tensor] = None) -> None:
     """Launch the kernels on checked CUDA tensors (N >= 1), no checks;
-    ``nt_max``: ``tiles_per_row`` of the longest row."""
+    ``nt_max``: ``tiles_per_row`` of the longest row; ``tile_regs``: the
+    fold's scratch, int32 [N * nt_max], made here unless given."""
     dev = chunks_u8.device
     if dev not in _consts:
         _consts[dev] = (
@@ -148,8 +149,9 @@ def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
     tabs, adv = _consts[dev]
     # scratch for the fold of rows longer than a tile; no kernel touches it
     # at nt_max 1, so no allocation is made there
-    tile_regs = torch.empty(len(lengths) * nt_max, dtype=torch.int32, device=dev) if nt_max > 1 \
-        else out
+    if tile_regs is None:
+        tile_regs = torch.empty(len(lengths) * nt_max, dtype=torch.int32, device=dev) if nt_max > 1 \
+            else out
     _build.launch(
         "crc32c_chunks", dev,
         chunks_u8.data_ptr(), chunks_u8.stride(0), lengths.data_ptr(), len(lengths), nt_max,

@@ -8,16 +8,19 @@ JAX counterpart: snappy_tpu/ops/host_codec.py: its build, ``raw_compress``
 ``decode_raw_body_into`` (block-parallel where the scan proves it),
 ``raw_uncompress``, ``framed_compress`` and ``framed_compress_into``,
 ``framed_uncompress_scanned`` with ``_run_decode_jobs``, the resumable
-``framed_resume_decode`` and ``scan_frames_records``.  The C sources in
-``native/`` are byte-identical copies of ``snappy_tpu/ops/native/*.c`` (a
-test pins them).
+``framed_resume_decode``, ``scan_frames_records`` and the sanitizer build
+(``sanitize_flags``).  The C sources in ``native/``, the library's and the
+two test drivers (``DRIVERS``), are byte-identical copies of
+``snappy_tpu/ops/native/*.c`` (a test pins them).
 
 ``cc -O3 -march=native -fPIC`` compiles them, as the JAX package does
-by default, and ``cc -shared`` links them at first use, into ``build/snappy_tpu_torch/`` through ``_build._build``
-(named by a hash of the sources, the commands and the CPU, under the
-kernels' file lock); ctypes loads the result.  Unlike the JAX module, a
-failed build raises: the host backend, the batch decoder and the frame
-scan need the library, and no caller reroutes around it.  The native CRC
+by default, plus ``sanitize_flags()`` and ``SNAPPY_TPU_TORCH_CFLAGS``, and
+``cc -shared`` links them at first use, into ``build/snappy_tpu_torch/``
+through ``_build._build`` (named by a hash of the sources, the commands
+and the CPU, under the kernels' file lock); ctypes loads the result.
+Unlike the JAX module, a failed build raises: the host backend, the batch
+decoder and the frame scan need the library, and no caller reroutes
+around it.  The native CRC
 is always there, so the JAX module's ``crc32c_native.using_native()``
 checks have no counterpart.  ctypes calls release the GIL, so the spans,
 slabs and segments run on host threads.
@@ -42,6 +45,8 @@ from . import _build
 
 NATIVE = Path(__file__).parent / "native"
 SOURCES = ("snappy_codec.c", "crc32c.c")
+# Test drivers beside the library, not in it (testing/sanitize.py builds them).
+DRIVERS = ("sanitize_driver.c", "fuzz_driver.c")
 
 # The parallel (speculative) scan pays above ~4 MB of compressed body
 # (host_codec.py:343-349), and so does the block-parallel decode, whose
@@ -88,15 +93,40 @@ def _cpu_id() -> str:
         return platform.processor()
 
 
+def sanitize_flags() -> List[str]:
+    """ASan+UBSan build flags where ``SNAPPY_TPU_TORCH_SANITIZE`` is set
+    (the counterpart of ``SNAPPY_TPU_SANITIZE``, host_codec.py:59-72), else
+    none.  ``lib()`` and ``_build.twin_lib()`` compile and link with them;
+    a process loads such a library only with libasan preloaded
+    (``testing/sanitize.py`` runs the suites so)."""
+    if not os.environ.get("SNAPPY_TPU_TORCH_SANITIZE"):
+        return []
+    return ["-fsanitize=address,undefined", "-fno-sanitize-recover=all", "-g"]
+
+
+def build_cmds() -> Tuple[List[str], List[str]]:
+    """The native library's compile and link commands, with the sanitizer
+    flags and ``SNAPPY_TPU_TORCH_CFLAGS`` (split on spaces; the
+    counterpart of ``SNAPPY_TPU_CFLAGS``, host_codec.py:80)."""
+    cc = os.environ.get("CC", "cc")
+    flags = sanitize_flags() + os.environ.get("SNAPPY_TPU_TORCH_CFLAGS", "").split()
+    return [cc, "-O3", "-march=native", "-fPIC", *flags], [cc, "-shared", *flags]
+
+
+def library_path() -> Path:
+    """Build the native library unless it is there; its path.  A
+    sanitized build is named ``host_codec_san_<hash>.so``."""
+    compile_cmd, link_cmd = build_cmds()
+    return _build._build(
+        "host_codec_san" if sanitize_flags() else "host_codec", compile_cmd, link_cmd,
+        [NATIVE / f for f in SOURCES], salt=_cpu_id(),
+    )
+
+
 @functools.cache
 def lib() -> ctypes.CDLL:
     """The native library; raises if it cannot be built."""
-    cc = os.environ.get("CC", "cc")
-    so = _build._build(
-        "host_codec", [cc, "-O3", "-march=native", "-fPIC"], [cc, "-shared"],
-        [NATIVE / f for f in SOURCES], salt=_cpu_id(),
-    )
-    dll = ctypes.CDLL(str(so))
+    dll = ctypes.CDLL(str(library_path()))
     for name, (restype, argtypes) in _ARGS.items():
         fn = getattr(dll, name)
         fn.restype = restype

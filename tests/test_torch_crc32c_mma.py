@@ -23,7 +23,6 @@ The packed constants hold the advance tables, the inverse shift matrices
 and the init term at the kernel's offsets.
 """
 
-import ctypes
 import shutil
 
 import numpy as np
@@ -255,14 +254,7 @@ def twin(request):
         pytest.skip("g++ is not available to build the CPU twin")
     if request.param == "lanes_up":
         return _build.twin_lib()
-    so = _build._build(
-        "twin_mma_lanes_down",
-        ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++", "-DSTPU_TWIN_REVERSE_LANES"],
-        ["g++", "-shared"], [_build.CSRC / "crc32c_mma.cu"], [_build.CSRC / "snappy_common.cuh"],
-    )
-    lib = ctypes.CDLL(str(so))
-    lib.stpu_twin_crc32c_mma.argtypes = _build._ENTRY_POINTS["crc32c_mma"][:-1]
-    return lib
+    return _build.twin_lib(lanes_down=True)
 
 
 def run_twin(lib, rows, lens):

@@ -17,7 +17,6 @@ of the host C CRC (``host_codec.masked_crc32c``), chip_smoke.py's oracle on
 the card, is held against the JAX package's.
 """
 
-import ctypes
 import shutil
 
 import numpy as np
@@ -45,14 +44,7 @@ def twin(request):
     """The twin, its lanes run 0 .. 31 (the package's build) or 31 .. 0."""
     if request.param == "lanes_up":
         return _build.twin_lib().stpu_twin_crc32c_chunks
-    so = _build._build(
-        "twin_crc_lanes_down",
-        ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++", "-DSTPU_TWIN_REVERSE_LANES"],
-        ["g++", "-shared"], [_build.CSRC / "crc32c.cu"], [_build.CSRC / "snappy_common.cuh"],
-    )
-    fn = ctypes.CDLL(str(so)).stpu_twin_crc32c_chunks
-    fn.argtypes = _build._ENTRY_POINTS["crc32c_chunks"][:-1]
-    return fn
+    return _build.twin_lib(lanes_down=True).stpu_twin_crc32c_chunks
 
 
 def rows_at(lengths, offset, seed):

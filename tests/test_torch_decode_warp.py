@@ -63,13 +63,7 @@ def twin(request):
     another lane writes in it, which the card does not order."""
     if request.param == "lanes_up":
         return _build.twin_lib()
-    so = _build._build(
-        "twin_lanes_down", ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++", "-DSTPU_TWIN_REVERSE_LANES"],
-        ["g++", "-shared"], [_build.CSRC / "decode_chunks.cu"], [_build.CSRC / "snappy_common.cuh"],
-    )
-    lib = ctypes.CDLL(str(so))
-    lib.stpu_twin_decode_chunks.argtypes = _build._ENTRY_POINTS["decode_chunks"][:-1]
-    return lib
+    return _build.twin_lib(lanes_down=True)
 
 
 def run_twin(fn, cases, width):
@@ -227,8 +221,8 @@ def recording_twin(tmp_path_factory):
     src = tmp_path_factory.mktemp("recording_twin") / "recording_twin.cc"
     src.write_text(_RECORDING_TWIN)
     so = _build._build(
-        "twin_recording", ["g++", "-std=c++17", "-O2", "-fPIC", f"-I{_build.CSRC}"],
-        ["g++", "-shared"], [src], [_build.CSRC / "decode_chunks.cu", _build.CSRC / "snappy_common.cuh"],
+        "twin_recording", *_build.twin_cmds(f"-I{_build.CSRC}"),
+        [src], [_build.CSRC / "decode_chunks.cu", _build.CSRC / "snappy_common.cuh"],
     )
     lib = ctypes.CDLL(str(so))
     lib.stpu_twin_decode_chunks.argtypes = _build._ENTRY_POINTS["decode_chunks"][:-1]

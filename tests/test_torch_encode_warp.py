@@ -209,7 +209,7 @@ def profiled_twin(twin, tmp_path_factory):
     src = tmp_path_factory.mktemp("profiled_twin") / "profiled_twin.cc"
     src.write_text(_PROFILED_TWIN)
     so = _build._build(
-        "twin_profiled", ["g++", "-std=c++17", "-O2", "-fPIC", f"-I{_build.CSRC}"], ["g++", "-shared"],
+        "twin_profiled", *_build.twin_cmds(f"-I{_build.CSRC}"),
         [src], [_build.CSRC / "encode_blocks.cu", _build.CSRC / "snappy_common.cuh"],
     )
     lib = ctypes.CDLL(str(so))

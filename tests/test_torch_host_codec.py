@@ -1,6 +1,7 @@
 """The port's native host runtime against the JAX package's.
 
-The port's C sources are byte-identical copies of snappy_tpu's, and its
+The port's C sources, the library's and the sanitizer and fuzz drivers,
+are byte-identical copies of snappy_tpu's, and its
 raw block scan (``scan_raw_blocks``, with the parallel speculative scan
 above ``_PAR_SCAN_MIN``) returns the JAX package's offsets, or None where
 it does, on split streams, on streams with an op across a 64 KiB output
@@ -26,7 +27,7 @@ from snappy_tpu_torch.testing.payloads import copy2, literal  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("name", host_codec.SOURCES)
+@pytest.mark.parametrize("name", host_codec.SOURCES + host_codec.DRIVERS)
 def test_native_sources_are_byte_identical(name):
     ours = (REPO / "snappy_tpu_torch" / "ops" / "native" / name).read_bytes()
     assert ours == (REPO / "snappy_tpu" / "ops" / "native" / name).read_bytes()

@@ -15,7 +15,6 @@ against the TPU kernel's scan through the Pallas interpreter, as
 tests/test_torch_stream_scan.py does.
 """
 
-import ctypes
 import shutil
 
 import numpy as np
@@ -52,17 +51,7 @@ def twin(request):
     """The twin, K2's lanes run 0 .. 31 (the package's build) or 31 .. 0."""
     if request.param == "lanes_up":
         return _build.twin_lib()
-    so = _build._build(
-        "twin_scan_lanes_down",
-        ["g++", "-std=c++17", "-O2", "-fPIC", "-x", "c++", "-DSTPU_TWIN_REVERSE_LANES"],
-        ["g++", "-shared"],
-        [_build.CSRC / "decode_chunks.cu", _build.CSRC / "decode_stream_scan.cu"],
-        [_build.CSRC / "snappy_common.cuh"],
-    )
-    lib = ctypes.CDLL(str(so))
-    for name in ("decode_chunks", "decode_stream_scan"):
-        getattr(lib, "stpu_twin_" + name).argtypes = _build._ENTRY_POINTS[name][:-1]
-    return lib
+    return _build.twin_lib(lanes_down=True)
 
 
 def route_index(body: bytes, m: int):
