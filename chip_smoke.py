@@ -112,7 +112,27 @@ Phases, each reported on its own lines:
               rank, the header and both span blobs in rank order give the
               framed-L1 digest, the decoded spans at their offsets the
               payload; a rank that fails or outlives 600 s fails the phase;
-11. guards  — (runs after 10, before 8 and 9) the card's stand-in for
+12. array   — (runs after 10, while its nccl rank is up, before 11) the
+              array route, SNAPPY_TPU_TORCH_DEVICE_KERNEL=xla for the phase
+              only (the array encoder and decoder, ops/encode_array.py and
+              ops/decode_array.py, the JAX package's XLA kernels, in place
+              of K2-K5; K1 for the CRCs): encode_framed and encode of the
+              payload at levels 1 and 2 (which the route ignores) give the
+              digests pinned from the JAX package's array route
+              (payloads.FRAMED_XLA_SHA256, RAW_XLA_SHA256, with their
+              lengths), decode_framed and decode of those streams and of
+              the level-1 K3 streams return the payload (each raw decode
+              one whole-stream array decode), decode_batch of the serving
+              batch equals the scalar route's results and encode_batch
+              per-payload encode, uncompress_framed_into through 8 MiB
+              buffers gives the scalar route's (read, written) steps, the
+              sync adapter round-trips, phase 4's error-order cases and
+              check_integrity=False hold, the 600 mutation streams through
+              raw_uncompress_batch equal the host C decoder's verdicts
+              and bytes, and on the nccl rank of phase 10
+              sharded_framed_compress and sharded_raw_compress give the
+              array digests and sharded_framed_uncompress the payload;
+11. guards  — (runs after 10 and 12, before 8 and 9) the card's stand-in for
               compute-sanitizer, which does not run on its machine
               (testing/guards.py): each kernel through its wrapper's
               _launch on phase 3's cases (the smoke blocks, the CRC
@@ -141,7 +161,9 @@ Phases, each reported on its own lines:
               for the sharded paths, K1's, K2's and K3's launches on the
               nccl rank and on each gloo rank, each above 0 on a rank that
               holds frames; the guard phase's launches, counted by the
-              wrappers, equal its guarded launches;
+              wrappers, equal its guarded launches; on the array route
+              (phase 12) K1 launched, and K2-K6 (K4's and K5's routes
+              too) never;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
@@ -160,7 +182,10 @@ Phases, each reported on its own lines:
               (testing/decode_layouts.measure: the row in shared memory,
               or written in place in global memory); then the end-to-end
               rates once more on the host backend, each beside the device
-              backend's, with the CPU model and os.cpu_count(); the sharded
+              backend's, with the CPU model and os.cpu_count(); each
+              end-to-end path's peak device memory above what was
+              allocated before it, and its time and peak on the array
+              route beside the scalar route's (best and median of 3); the sharded
               framed encode, framed decode and raw encode on the nccl rank
               beside the engine's call on one device (engine, sharded,
               sharded, engine), each gloo rank's times, and each
@@ -175,7 +200,9 @@ bytes the call moves over 3.35 TB/s and its int8 operations over 1,979
 TOP/s, from this run's inputs) with ``bound_by``, and ``library_ms`` (null:
 no single PyTorch call computes any of these functions), and ``guarded``
 (its launches inside the guard bands of phase 11); K1, K2 and K3 also
-carry ``sharded_launches`` (the nccl rank's and each gloo rank's).  The
+carry ``sharded_launches`` (the nccl rank's and each gloo rank's), and
+every kernel ``array_launches`` (its launches in phase 12: K1's, and 0 for
+the others).  The
 last line is the JSON result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
 """
@@ -248,17 +275,29 @@ def bound(nbytes: int, int8_ops: int = 0):
 
 
 @contextlib.contextmanager
-def stream_mode(mode: str):
-    """SNAPPY_TPU_STREAM_MODE set to ``mode`` inside, restored after."""
-    old = os.environ.get("SNAPPY_TPU_STREAM_MODE")
-    os.environ["SNAPPY_TPU_STREAM_MODE"] = mode
+def env_var(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside, restored
+    after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["SNAPPY_TPU_STREAM_MODE"]
+            del os.environ[name]
         else:
-            os.environ["SNAPPY_TPU_STREAM_MODE"] = old
+            os.environ[name] = old
+
+
+def stream_mode(mode: str):
+    """SNAPPY_TPU_STREAM_MODE set to ``mode`` inside, restored after."""
+    return env_var("SNAPPY_TPU_STREAM_MODE", mode)
+
+
+def array_route():
+    """The engine on its array route inside (the array encoder and decoder
+    in place of K2-K5), restored after."""
+    return env_var("SNAPPY_TPU_TORCH_DEVICE_KERNEL", "xla")
 
 
 def card_label() -> str:
@@ -1156,6 +1195,79 @@ def main() -> None:
           f"the payload; the header and the compress_framed_span blobs in rank order give the pinned "
           f"framed-L1 digest, and the uncompress_framed_span parts at their offsets the payload")
 
+    # 12. the array route (after 10, while its nccl rank is up; before 11,
+    # 8 and 9) -----------------------------------------------------------------
+    # SNAPPY_TPU_TORCH_DEVICE_KERNEL=xla for this phase only: the array
+    # encoder and decoder (ops/encode_array.py, ops/decode_array.py) in place
+    # of K2-K5, K1 for the CRCs, the JAX package's SNAPPY_TPU_DEVICE_KERNEL=xla
+    t_array = time.perf_counter()
+    reset_counts()
+    with array_route():
+        assert engine._array_route(), "SNAPPY_TPU_TORCH_DEVICE_KERNEL=xla did not select the array route"
+        arr_framed = {level: api.encode_framed(payload, level=level, device=dev) for level in (1, 2)}
+        arr_raw = {level: api.encode(payload, level=level, device=dev) for level in (1, 2)}
+        arr_back = {"decode_framed of its L1 stream": api.decode_framed(arr_framed[1], device=dev),
+                    "decode_framed of K3's L1 stream": api.decode_framed(stream, device=dev),
+                    "decode of its L1 stream": api.decode(arr_raw[1], device=dev),
+                    "decode of K3's L1 stream": api.decode(raw1, device=dev)}
+        arr_batch = api.decode_batch(serving, device=dev)
+        arr_enc_batch = api.encode_batch(captured["in"], device=dev)
+        arr_per_payload = [api.encode(p, device=dev) for p in captured["in"]]
+        arr_into = resume_into(stream, 8 << 20)
+        dst = io.BytesIO()
+        sync.compress_framed(io.BytesIO(payload), dst, device=dev)
+        arr_sync = dst.getvalue()
+        dst = io.BytesIO()
+        sync.uncompress_framed(io.BytesIO(arr_sync), dst, device=dev)
+        arr_sync_back = dst.getvalue()
+        arr_order = (engine.framed_uncompress(corrupt(stream, a, b), device=dev)[1],
+                     engine.framed_uncompress(corrupt(stream, b, a), device=dev)[1])
+        arr_unchecked = (api.decode_framed(bad, device=dev),
+                         api.decode_framed(bad, check_integrity=False, device=dev))
+        arr_mutated = engine.raw_uncompress_batch(m_streams, device=dev)
+        arr_sharded = {"sharded_framed_compress": pmesh.sharded_framed_compress(payload, world1),
+                       "sharded_raw_compress": pmesh.sharded_raw_compress(payload, world1)}
+        arr_sharded_back = pmesh.sharded_framed_uncompress(arr_sharded["sharded_framed_compress"], world1)
+    array_launches = counts()
+    array_routes = routes() + scan_routes()
+    array_s = time.perf_counter() - t_array
+
+    pinned_xla = {"framed": (payloads.FRAMED_XLA_LEN, payloads.FRAMED_XLA_SHA256),
+                  "raw": (payloads.RAW_XLA_LEN, payloads.RAW_XLA_SHA256)}
+    for name, got_s, fmt in (("encode_framed L1", arr_framed[1], "framed"),
+                             ("encode_framed L2", arr_framed[2], "framed"),
+                             ("encode L1", arr_raw[1], "raw"), ("encode L2", arr_raw[2], "raw"),
+                             ("sync compress_framed", arr_sync, "framed"),
+                             ("sharded_framed_compress", arr_sharded["sharded_framed_compress"], "framed"),
+                             ("sharded_raw_compress", arr_sharded["sharded_raw_compress"], "raw")):
+        assert (len(got_s), sha(got_s)) == pinned_xla[fmt], ("array route", name, len(got_s), sha(got_s))
+        print(f"array: {name} {len(payload)} bytes -> {len(got_s)} bytes, sha256 {sha(got_s)} equals the "
+              f"digest pinned from the JAX package's array route")
+    for name, back in arr_back.items():
+        assert back == payload, f"array route: {name} did not return the payload"
+    assert arr_sync_back == payload, "array route: sync uncompress_framed"
+    assert arr_sharded_back == (payload, "ok"), ("array route: sharded_framed_uncompress", arr_sharded_back[1])
+    assert arr_batch == batch_out, "array route: decode_batch differs from the scalar route's"
+    assert arr_enc_batch == arr_per_payload, "array route: encode_batch differs from per-payload encode"
+    assert arr_into == into[8 << 20], "array route: uncompress_framed_into differs from the scalar route's steps"
+    assert arr_order == ("crc", "invalid"), ("array route: error order", arr_order)
+    assert arr_unchecked == (b"", payload), "array route: check_integrity=False"
+    arr_div = collections.Counter()
+    for (got_m, _), want_m, (_, kind) in zip(arr_mutated, m_want, mutated):
+        if got_m != want_m:
+            arr_div["verdict" if (got_m is None) != (want_m is None) else "bytes", kind] += 1
+    print(f"array: decode_framed and decode of its streams and of K3's level-1 streams return the "
+          f"payload (the raw decodes one whole-stream array decode each); decode_batch of "
+          f"{len(serving)} streams equals the scalar route's; encode_batch of {len(captured['in'])} "
+          f"payloads equals per-payload encode; uncompress_framed_into through 8 MiB buffers gives the "
+          f"scalar route's {len(arr_into[0])} (read, written) steps; the sync round trip returns the "
+          f"payload; error order (crc@5 + invalid@9 -> {arr_order[0]}; invalid@5 + crc@9 -> "
+          f"{arr_order[1]}); check_integrity=False accepts the bad CRC; sharded_framed_uncompress on "
+          f"the nccl rank returns the payload; {len(m_streams)} mutation streams through "
+          f"raw_uncompress_batch against the host C decoder: {sum(arr_div.values())} divergences "
+          f"{dict(arr_div)} (tolerance: exact); {array_s:.1f} s {tag}")
+    assert not arr_div, ("array route: mutation streams against the host C decoder", dict(arr_div))
+
     # 11. guards (after 10, before 8 and 9) ------------------------------------
     # the card's stand-in for compute-sanitizer: each kernel through its
     # wrapper's _launch, every buffer it writes inside guard bands and every
@@ -1270,6 +1382,10 @@ def main() -> None:
     for name in ("decode_stream_scan", "crc32c", "decode_chunks", "encode_blocks"):
         assert stream_launches[name] > 0, f"the stream layer never launched {name}"
     assert fused_launches["crc32c_mma"] > 0, "the fused CRC path never launched crc32c_mma"
+    print(f"counters: array route (phase 12) {array_launches}, K4 / K5 routes {array_routes}")
+    assert array_launches["crc32c"] > 0, "the array route never launched crc32c"
+    assert not any(n for name, n in array_launches.items() if name not in ("crc32c", "crc32c_long")) \
+        and not any(array_routes), ("the array route launched a kernel other than K1", array_launches)
     assert one_shot_launches["crc32c"] == 1, ("the one-shot CRC's launches of crc32c", one_shot_launches)
     launches = {name: path_launches[p][name] for name, (_, _, p) in KERNELS.items()}
     # the sharded paths (phase 10): one nccl rank, then each gloo rank
@@ -1608,12 +1724,34 @@ def main() -> None:
         ("decode (scan mode)", scan_decode, len(payload), 3),
         ("masked_crc32c", lambda: engine.masked_crc32c(payload, device=dev), len(payload), 3),
     )
-    rates = {}
+    def e2e_peak(fn, reps):
+        """e2e(fn, reps) and the most device memory the calls held above
+        what was allocated before them."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = e2e(fn, reps)
+        return times, torch.cuda.max_memory_allocated() - base
+
+    rates, peaks = {}, {}
     for name, fn, nbytes, reps in end_to_end:
-        best, med = rates[name] = e2e(fn, reps)
+        rates[name], peaks[name] = e2e_peak(fn, reps)
+        best, med = rates[name]
         print(f"timing: {name} {nbytes} bytes: best {best * 1e3:.2f} ms "
               f"({nbytes / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
-              f"({nbytes / med / 1e9:.3f} GB/s) {tag}")
+              f"({nbytes / med / 1e9:.3f} GB/s), peak device memory {peaks[name]} bytes {tag}")
+    # the same calls on the array route, each beside the scalar route's
+    with array_route():
+        for name, fn, nbytes, reps in end_to_end:
+            if name in ("decode (scan mode)", "masked_crc32c"):
+                continue  # a mode of the scalar route's stream decoder; K1 on both routes
+            (best, med), peak = e2e_peak(fn, reps)
+            print(f"timing: array route {name} {nbytes} bytes: best {best * 1e3:.2f} ms "
+                  f"({nbytes / best / 1e9:.3f} GB/s), median {med * 1e3:.2f} ms "
+                  f"({nbytes / med / 1e9:.3f} GB/s), peak device memory {peak} bytes; scalar route "
+                  f"best {rates[name][0] * 1e3:.2f} ms, median {rates[name][1] * 1e3:.2f} ms, peak "
+                  f"{peaks[name]} bytes; array / scalar time: best {best / rates[name][0]:.3f}, "
+                  f"median {med / rates[name][1]:.3f} {tag}")
     # the same calls on the host backend: the native C runtime on this
     # machine's cores, the same-machine control
     host_tag = f"[host backend: {cpu_label()}; {card}]"
@@ -1686,6 +1824,7 @@ def main() -> None:
         if row["name"] in SHARDED:
             row["sharded_launches"] = {"nccl_world_1": sharded_launches[row["name"]],
                                        "gloo_world_2": [res["launches"][row["name"]] for res in ranks]}
+        row["array_launches"] = array_launches[row["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,16 @@ purpose:
   too (the frame and block scans), so a failed build raises on first use
   on either backend rather than rerouting.
 
+On the device backend, ``device_kernel()`` picks the route, as the JAX
+engine's ``_use_scalar_kernels`` (engine.py:38-49) does: ``scalar`` (the
+default) runs the hand-written kernels, any other value the array-parallel
+route (ops/decode_array.py, ops/encode_array.py: the JAX package's XLA
+kernels, decode_jax and encode_jax).  It is read from
+``SNAPPY_TPU_TORCH_DEVICE_KERNEL`` at each call, as JAX reads
+``SNAPPY_TPU_DEVICE_KERNEL`` at each call, and for the same reason as the
+backend the JAX variable does not move the port.  There is no setter: the
+JAX package has none.
+
 The device backend's default device is ``cuda``: the kernels run on the
 card.  ``device="cpu"`` selects each kernel's plain PyTorch version, which
 is what the CPU tests use.  Asking for CUDA where there is none raises;
@@ -37,6 +47,7 @@ import torch
 DEFAULT_DEVICE = "cuda"
 BACKENDS = ("auto", "device", "host")
 DEFAULT_BACKEND = "device"
+DEFAULT_DEVICE_KERNEL = "scalar"
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -64,6 +75,13 @@ def resolve_backend(backend: Optional[str] = None) -> str:
     if name not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     return "host" if name == "auto" else name
+
+
+def device_kernel() -> str:
+    """The device route: ``SNAPPY_TPU_TORCH_DEVICE_KERNEL``, read now, or
+    ``scalar`` where it is unset.  Any value but ``scalar`` selects the
+    array route."""
+    return os.environ.get("SNAPPY_TPU_TORCH_DEVICE_KERNEL", DEFAULT_DEVICE_KERNEL)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -17,6 +17,16 @@ compile shapes, which PyTorch does not have.  Streams are parsed and
 assembled on the host; CRC, decode and encode run on ``device`` (``cuda``
 by default, see config.py).  Nothing here raises on malformed input:
 callers get (value, reason) results, which the API layer converts.
+
+The array route (``config.device_kernel()`` other than ``scalar``, the
+JAX engine's ``SNAPPY_TPU_DEVICE_KERNEL=xla``) encodes with
+ops/encode_array.py and decodes with ops/decode_array.py where the scalar
+route runs K2-K5: every raw stream in one whole-stream decode, framed
+chunks and blocks in slabs of rows that bound the device memory (the JAX
+engine's power-of-two batch buckets bounded compile shapes; the results
+do not depend on either).  ``level`` is ignored there, as in the JAX
+engine.  K1 takes the CRCs on both routes.  A failure on the array route
+raises: nothing falls back to the kernels.
 """
 
 from __future__ import annotations
@@ -29,10 +39,25 @@ import torch
 from . import config
 from .formats import constants as C
 from .formats import framing, varint
-from .ops import crc32c, decode_chunks, decode_stream, encode_blocks, host_codec
+from .ops import (
+    crc32c, decode_array, decode_chunks, decode_stream, encode_array, encode_blocks, host_codec,
+)
 
 _BLOCK = C.MAX_BLOCK_LEN  # 65536
 _BIG = decode_chunks.MAX_OUT  # 131072: K2's big-window shape
+# The array encoder's row: max_compressed_len(65536) rounded up to 128
+# (snappy_tpu/engine.py:29).
+_MAX_COMP_BLOCK = -(-C.max_compressed_len(_BLOCK) // 128) * 128
+_ARRAY_SLAB = 1 << 23  # elements of a slab of rows on the array route
+
+
+def _array_route() -> bool:
+    """The array route, read at each call (engine._use_scalar_kernels)."""
+    return config.device_kernel() != "scalar"
+
+
+def _slab_rows(width: int) -> int:
+    return max(1, _ARRAY_SLAB // width)
 
 
 def _split_blocks(arr: np.ndarray, dev: torch.device):
@@ -58,8 +83,8 @@ def raw_compress(
 ) -> Optional[bytes]:
     """Raw-format compress: varint header + the block tag streams
     (snappy.nim:27-64); None for input over MAX_UNCOMPRESSED_LEN.  Level
-    >= 2 encodes with two-way hash buckets (engine.py:222).  The backends
-    give the same bytes."""
+    >= 2 encodes with two-way hash buckets (engine.py:222); the array route
+    ignores it.  The backends give the same bytes, the array route others."""
     if config.resolve_backend(backend) == "host":
         return host_codec.raw_compress(data, level)
     return raw_compress_batch([data], level, device, "device")[0]
@@ -70,10 +95,12 @@ def raw_compress_batch(
     backend: Optional[str] = None,
 ) -> List[Optional[bytes]]:
     """Compress many payloads with one encoder launch over the 64 KiB
-    blocks of all of them (on the host backend, one payload after the
-    other).  Returns one stream (or None for oversized input) per payload,
-    byte-identical to ``raw_compress`` of that payload alone (the block
-    split is per payload)."""
+    blocks of all of them (on the array route, the array encoder over
+    slabs of those blocks, where the JAX engine goes payload by payload;
+    on the host backend, one payload after the other).  Returns one
+    stream (or None for oversized input) per payload, byte-identical to
+    ``raw_compress`` of that payload alone (the block split is per
+    payload)."""
     if config.resolve_backend(backend) == "host":
         return [host_codec.raw_compress(d, level) for d in datas]
     dev = config.resolve_device(device)
@@ -99,9 +126,7 @@ def raw_compress_batch(
         n = len(datas[i])
         flat[r0 * _BLOCK : r0 * _BLOCK + n] = np.frombuffer(datas[i], dtype=np.uint8)
         lens[r0 + k - 1] = n - (k - 1) * _BLOCK
-    enc, enc_len = encode_blocks.encode_blocks(
-        host.to(dev), torch.from_numpy(lens).to(dev), level
-    )
+    enc, enc_len = _encode_rows(host.to(dev), torch.from_numpy(lens).to(dev), level)
     # Each row's bytes, concatenated in row order on the device: one copy
     # of exactly the encoded bytes to the host.
     streams = _pack_rows(enc, enc_len).cpu().numpy()
@@ -110,6 +135,27 @@ def raw_compress_batch(
         lo = int(ends[r0 - 1]) if r0 else 0
         results[i] = varint.encode_uint32(len(datas[i])) + streams[lo : ends[r0 + k - 1]].tobytes()
     return results
+
+
+def _encode_rows(rows: torch.Tensor, lens: torch.Tensor, level: int):
+    """The tag streams of the blocks in ``rows`` (uint8 [N, 65536], int32
+    lengths, on one device) as (uint8 [N, W], int32 lengths): K3 at
+    ``level``, or on the array route the array encoder over slabs of rows,
+    ``level`` ignored (engine.py:234-236, :596-598)."""
+    if not _array_route():
+        return encode_blocks.encode_blocks(rows, lens, level)
+    n = rows.shape[0]
+    enc = torch.empty((n, _MAX_COMP_BLOCK), dtype=torch.uint8, device=rows.device)
+    totals = torch.empty(n, dtype=torch.int32, device=rows.device)
+    col = torch.arange(_BLOCK, device=rows.device)
+    step = _slab_rows(_MAX_COMP_BLOCK)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        # the array encoder's match lengths see the bytes past a block's
+        # end before they are cut to it: zero them, as the JAX engine pads
+        block = rows[lo:hi].masked_fill(col >= lens[lo:hi, None], 0)
+        enc[lo:hi], totals[lo:hi] = encode_array.encode_blocks(block, lens[lo:hi], _MAX_COMP_BLOCK)
+    return enc, totals
 
 
 def _pack_rows(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -156,6 +202,26 @@ def _decode_segments(
     return ok.cpu().numpy(), out.cpu().numpy()
 
 
+def _raw_uncompress_array(body: memoryview, declared: int, dev: torch.device) -> Tuple[Optional[bytes], str]:
+    """One whole-stream array decode of a raw body (engine.py:374-386).
+    The JAX engine pads the body and the output to powers of two; here
+    they are exact, since the verdict and a valid stream's bytes do not
+    depend on the padding.  A tag yields at most 64 bytes from 3 input
+    bytes and every byte of a valid body is in a tag, so a declared length
+    above 64/3 of the body is invalid without a decode: the array decoder
+    would say so too, after allocating the declared length."""
+    if 3 * declared > 64 * len(body):
+        return None, "invalid"
+    if declared >= 1 << 31 or len(body) >= 1 << 31:
+        raise ValueError("the array route decodes raw streams below 2^31 bytes "
+                         "(the JAX engine's int32 lengths)")
+    comp = torch.from_numpy(np.frombuffer(body, dtype=np.uint8).copy()).to(dev)
+    out, ok, _written = decode_array.decode_raw(comp, len(body), declared, declared)
+    if not bool(ok):
+        return None, "invalid"
+    return out.cpu().numpy().tobytes(), "ok"
+
+
 def raw_uncompress(
     data: bytes,
     max_size: int = C.MAX_UNCOMPRESSED_LEN,
@@ -166,7 +232,8 @@ def raw_uncompress(
     or (None, reason); reason in {"invalid", "too_large"}.
 
     The host backend decodes with ``host_codec.raw_uncompress``.  On the
-    device backend, a stream of at most 128 KiB out takes K2 at the
+    array route every stream takes one whole-stream array decode.  On the
+    scalar route, a stream of at most 128 KiB out takes K2 at the
     big-window shape, any larger one the streaming decoder in the mode that
     ``SNAPPY_TPU_STREAM_MODE`` names (engine.py:357-386): K4 in grid mode
     (the default), K5 in scan mode.  Scan mode's ``unsupported`` verdict (a
@@ -189,6 +256,8 @@ def raw_uncompress(
         return (b"", "ok") if len(body) == 0 else (None, "invalid")
     if len(body) == 0:
         return None, "invalid"
+    if _array_route():
+        return _raw_uncompress_array(body, declared, dev)
     if declared <= _BIG:
         ok, out = _decode_segments([body], [np.array([0, len(body)])], [declared], _BIG, dev)
         return (out[0, :declared].tobytes(), "ok") if ok[0] else (None, "invalid")
@@ -208,6 +277,7 @@ def raw_uncompress_batch(
     shape over every one-block stream and every 64 KiB segment of the
     larger streams that the native tag scan splits, and one K2 launch at
     the big-window shape over the unsplittable streams of at most 128 KiB.
+    On the array route every stream goes through ``raw_uncompress``.
     Anything else goes through ``raw_uncompress``, and so does a split
     stream whose segment fails its in-chunk check (a legal copy reaching
     across a block boundary, which the split does not model): the
@@ -221,6 +291,8 @@ def raw_uncompress_batch(
     if config.resolve_backend(backend) == "host":
         return [host_codec.raw_uncompress(d, max_size) for d in datas]
     dev = config.resolve_device(device)
+    if _array_route():  # stream by stream (engine.py:452-454)
+        return [raw_uncompress(d, max_size, dev, "device") for d in datas]
     results: List[Optional[Tuple[Optional[bytes], str]]] = [None] * len(datas)
     seg_jobs = []  # (result index, body, in_offs, declared): the chunk shape
     big_jobs = []  # (result index, body, declared): the big-window shape
@@ -303,7 +375,7 @@ def framed_compress(
     arr = np.frombuffer(data, dtype=np.uint8)
     frames, flens = _split_blocks(arr, dev)
     crcs = crc32c.masked_crc32c_chunks(frames, flens)
-    enc, totals = encode_blocks.encode_blocks(frames, flens, level)
+    enc, totals = _encode_rows(frames, flens, level)
     crcs = crcs.cpu().numpy()
     enc = enc.cpu().numpy()
     totals = totals.cpu().numpy()
@@ -348,20 +420,46 @@ def _decode_bodies(
     check_integrity: bool, dev: torch.device,
 ):
     """One K2 launch over the tag streams ``arr[lo:hi]`` of ``bodies`` into
-    64 KiB rows, then (``check_integrity``) one K1 launch over the decoded
-    rows.  ``declared_h``: int32, one per body.  Returns (ok, out, masked
-    CRCs or None, declared) on ``dev``."""
-    offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
-    offsets[1:] = np.cumsum([hi - lo for lo, hi in bodies])
-    comp = np.concatenate([arr[lo:hi] for lo, hi in bodies] + [arr[:0]])
+    64 KiB rows (on the array route the array decoder, ``_decode_rows_array``),
+    then (``check_integrity``) one K1 launch over the decoded rows.
+    ``declared_h``: int32, one per body.  Returns (ok, out, masked CRCs or
+    None, declared) on ``dev``."""
     declared = torch.from_numpy(declared_h).to(dev)
-    out = torch.empty((len(bodies), _BLOCK), dtype=torch.uint8, device=dev)
-    ok, _written = decode_chunks.decode_chunks(
-        torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
-        declared, out, host_values=(offsets, declared_h),
-    )
+    if _array_route():
+        ok, out = _decode_rows_array(arr, bodies, declared_h, dev)
+    else:
+        offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum([hi - lo for lo, hi in bodies])
+        comp = np.concatenate([arr[lo:hi] for lo, hi in bodies] + [arr[:0]])
+        out = torch.empty((len(bodies), _BLOCK), dtype=torch.uint8, device=dev)
+        ok, _written = decode_chunks.decode_chunks(
+            torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
+            declared, out, host_values=(offsets, declared_h),
+        )
     crcs = crc32c.masked_crc32c_chunks(out, declared) if check_integrity else None
     return ok, out, crcs, declared
+
+
+def _decode_rows_array(
+    arr: np.ndarray, bodies: List[Tuple[int, int]], declared_h: np.ndarray, dev: torch.device,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The array decoder over the tag streams ``arr[lo:hi]`` of ``bodies``
+    into 64 KiB rows (decode_jax.decode_chunks at u_pad 65536,
+    engine.py:824-839), in slabs of rows zero-padded to the slab's longest
+    body.  Returns (ok bool [N], out uint8 [N, 65536]) on ``dev``."""
+    n = len(bodies)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    out = torch.empty((n, _BLOCK), dtype=torch.uint8, device=dev)
+    lens = np.array([hi - lo for lo, hi in bodies], dtype=np.int64)
+    step = _slab_rows(max(int(lens.max(initial=0)), _BLOCK))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        comp = np.zeros((hi - lo, max(1, int(lens[lo:hi].max()))), dtype=np.uint8)
+        for k, (b_lo, b_hi) in enumerate(bodies[lo:hi]):
+            comp[k, : b_hi - b_lo] = arr[b_lo:b_hi]
+        out[lo:hi], ok[lo:hi], _written = decode_array.decode_chunks(
+            torch.from_numpy(comp).to(dev), lens[lo:hi], declared_h[lo:hi], _BLOCK)
+    return ok, out
 
 
 def _crc_payloads(arr: np.ndarray, spans: List[Tuple[int, int]], dev: torch.device) -> torch.Tensor:

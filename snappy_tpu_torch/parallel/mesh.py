@@ -3,13 +3,16 @@ framed stream, split over the ranks of a process group.
 
 JAX counterpart: snappy_tpu/parallel/mesh.py (``default_mesh``, ``AXIS``,
 ``_sharded_encode_scalar_step``, ``_sharded_decode_scalar_step``,
+``_sharded_encode_step``, ``_sharded_decode_step``,
 ``sharded_raw_compress``, ``sharded_framed_compress``,
 ``sharded_framed_uncompress``).
 
 A ``Mesh`` is one rank per device, in the usual PyTorch SPMD layout
 (torchrun): every rank calls the same entry point with the same input.
 Each rank runs the port's kernels on its own device over its contiguous
-share of the rows (K1 and K3 to encode, K2 and K1 to decode), then the
+share of the rows (K1 and K3 to encode, K2 and K1 to decode; on the
+engine's array route, config.device_kernel(), the array encoder and
+decoder in place of K3 and K2, as the JAX mesh routes them), then the
 ranks all-gather what the stream's layout needs: the int32 encoded lengths
 (an exclusive scan of them places every frame, the counterpart of
 ``lax.all_gather`` plus ``cumsum``), the CRCs or ok flags, and each rank's
@@ -27,9 +30,8 @@ Divergences from the JAX package on purpose (ROADMAP queue 3):
 ``n_devices`` other than the group's size raises (JAX slices its device
 list, which one device per process has no counterpart for); the shares
 differ by at most one row in ``np.array_split`` order, where JAX pads the
-batch to a power of two per device to bound TPU compile shapes; the XLA
-encoder leg (``encode_jax``, another matcher with other bytes) is not
-ported.  ``sharded_framed_uncompress`` keeps the JAX mesh's error order,
+batch to a power of two per device to bound TPU compile shapes.
+``sharded_framed_uncompress`` keeps the JAX mesh's error order,
 which differs from the engine's (every verbatim CRC before any compressed
 chunk).
 """
@@ -48,7 +50,7 @@ import torch.distributed as dist
 from .. import config, engine
 from ..formats import constants as C
 from ..formats import framing, varint
-from ..ops import crc32c, encode_blocks
+from ..ops import crc32c
 
 AXIS = "blocks"
 _BLOCK = C.MAX_BLOCK_LEN  # 65536: a frame
@@ -165,8 +167,8 @@ def _gather_bytes(mesh: Mesh, packed: torch.Tensor, per_row: np.ndarray,
 
 
 def _sharded_encode(mesh: Mesh, arr: np.ndarray, with_crc: bool):
-    """This rank's frames through K1 (``with_crc``) and K3 at level 1, then
-    the all-gathers.  Returns (buf, starts, totals, crcs), the same on every
+    """This rank's frames through K1 (``with_crc``) and K3 at level 1 (or
+    the array encoder, ``engine._encode_rows``), then the all-gathers.  Returns (buf, starts, totals, crcs), the same on every
     rank: frame k's encoded bytes are ``buf[starts[k] : starts[k] +
     totals[k]]``, its masked CRC ``crcs[k]`` (None without ``with_crc``)."""
     n = len(arr)
@@ -179,7 +181,7 @@ def _sharded_encode(mesh: Mesh, arr: np.ndarray, with_crc: bool):
         frames = torch.empty((0, _BLOCK), dtype=torch.uint8, device=mesh.device)
         flens = torch.empty(0, dtype=torch.int32, device=mesh.device)
     crcs = crc32c.masked_crc32c_chunks(frames, flens) if with_crc else None
-    enc, totals = encode_blocks.encode_blocks(frames, flens, 1)
+    enc, totals = engine._encode_rows(frames, flens, 1)
     all_totals = _gather_rows(mesh, "totals", totals, bounds).astype(np.int64)
     all_crcs = None
     if with_crc:
@@ -239,8 +241,8 @@ def _first(bad: np.ndarray) -> Optional[int]:
 def sharded_framed_uncompress(
     data: bytes, mesh: Optional[Mesh] = None, check_integrity: bool = True
 ) -> Tuple[Optional[bytes], str]:
-    """Framed-format decompress with the compressed chunks (K2, then K1 over
-    the decoded rows) and the verbatim chunks' CRCs (K1) split over the
+    """Framed-format decompress with the compressed chunks (K2, or the
+    array decoder, then K1 over the decoded rows) and the verbatim chunks' CRCs (K1) split over the
     mesh.  Returns (payload, "ok") or (None, reason), with the JAX mesh's
     error order: the walk over the chunk table (``invalid``,
     ``unknown_chunk``), then every verbatim chunk's CRC (``crc``), then the

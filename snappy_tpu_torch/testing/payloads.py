@@ -16,7 +16,9 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
   ``RAW_L1_SHA256``, ``RAW_L2_SHA256`` and ``FRAMED_L2_SHA256`` pin the
   same payload's raw stream at levels 1 and 2
   (``snappy_tpu.engine.raw_compress(payload, backend="host", level=L)``)
-  and its framed stream at level 2, the same way.
+  and its framed stream at level 2, the same way.  ``FRAMED_XLA_SHA256``
+  and ``RAW_XLA_SHA256`` (with their lengths) pin its streams on the array
+  route, from the JAX package's array route.
 * ``serving_batch`` — the raw batch decoder's input: one-block streams,
   unsplittable streams of 70-128 KiB, one large stream and malformed ones.
 * ``big_window_cases`` and ``stream_cases`` — tag streams for the chunk
@@ -67,6 +69,15 @@ GOLDEN_SHA256 = "3290f41a2f89899d8bf89109c543ab047772d7d9ed745d80e56f7a3bbf7d4d0
 RAW_L1_SHA256 = "6c6af1e5ce4b8a5b191cb9189a1e80305316c68dcd461ee554fb76e7baeb4029"
 RAW_L2_SHA256 = "f12efea7b7276fedde406cafda243e7caf6e7c7ce361cb5544c3c4be669b7011"
 FRAMED_L2_SHA256 = "49b5f8fe31e2b3268316b15fdd629d68da91d6a9a0e0aaaa24d0a8cb65c4d5b9"
+# The array route's streams of mixed_payload(): the JAX package's framed
+# and raw encodings on its array route (SNAPPY_TPU_DEVICE_KERNEL=xla,
+# backend="device", which ignores the level), made on the CPU by
+# tools/pin_array_digests.py, which encodes the payload in pieces of 32
+# blocks and joins them (every block is encoded on its own).
+FRAMED_XLA_LEN = 21_500_125
+FRAMED_XLA_SHA256 = "903dd8cdc7587e7d4b420783d2e4676168c220b95a9c29f1764838bbc42a650c"
+RAW_XLA_LEN = 21_423_666
+RAW_XLA_SHA256 = "284872a7137cb0433b8a43c42e3e3994d157004675e6e48fc0480bf4a368aaf1"
 
 SERVING_SEED = 3
 SERVING_SMALL = 256  # one-block streams of 40-60 KB
