@@ -77,7 +77,7 @@ Phases, each reported on its own lines:
               scan mode (K5's window route: K2 over the windows and one
               pass-2 launch, no step walked); cli.main in a temporary
               directory: framed L1 and L2 round trips, then `-d --raw`
-              with SNAPPY_TPU_STREAM_MODE=scan set for the call (K5 on its
+              with SNAPPY_TPU_TORCH_STREAM_MODE=scan set for the call (K5 on its
               window route, no step walked), and a far-copy stream (K5
               without an index, then the whole-stream walk of K4: one
               literal over the boundaries);
@@ -132,7 +132,32 @@ Phases, each reported on its own lines:
               and bytes, and on the nccl rank of phase 10
               sharded_framed_compress and sharded_raw_compress give the
               array digests and sharded_framed_uncompress the payload;
-11. guards  — (runs after 10 and 12, before 8 and 9) the card's stand-in for
+13. cpp     — (runs after 12, before 11) the port against google/snappy
+              (testing/cpp_differential.py): where libsnappy.so.1 loads on
+              this host, (a) google/snappy's stream of the payload decodes
+              back with decode in grid mode (K4's window route; REDECODED
+              printed), in scan mode (K5's window route; WALKED printed)
+              and on the array route, its streams of the serving batch
+              with decode_batch (K2 at both shapes) and of the batch's
+              64-128 KiB payloads with decode (K2 at 128 KiB), and (b)
+              google/snappy decodes the port's streams of the payload at
+              levels 1 and 2 (K3) and on the array route, and encode_batch's
+              of the serving inputs, their sizes printed beside its own;
+              where it does not load, one line says so, and the port's
+              streams must equal those that google/snappy decoded where
+              the pins were made (testing/cpp_pins.json).  Then, live or
+              pinned: the 600 mutation streams, google/snappy's 31 seed
+              streams and 400 mutants of them, and the 48 streams of the
+              far-copy battery (payloads.farcopy_placement_cases: copies
+              reaching more than 64 KiB back, near ones, literals, placed
+              at and across the 64 KiB boundaries) through every decode
+              route (raw_uncompress_batch; decode in grid and scan mode;
+              the array route; decode_raw_stream_bytes on every stream in
+              grid mode, K4 on its window route or its walk, and in scan
+              mode, K5 then K4 on `unsupported`), the host C decoder and
+              the oracle (not on the mutation streams): each verdict and
+              each output's SHA-256 equal google/snappy's, or it fails;
+11. guards  — (runs after 10, 12 and 13, before 8 and 9) the card's stand-in for
               compute-sanitizer, which does not run on its machine
               (testing/guards.py): each kernel through its wrapper's
               _launch on phase 3's cases (the smoke blocks, the CRC
@@ -163,7 +188,9 @@ Phases, each reported on its own lines:
               holds frames; the guard phase's launches, counted by the
               wrappers, equal its guarded launches; on the array route
               (phase 12) K1 launched, and K2-K6 (K4's and K5's routes
-              too) never;
+              too) never; in phase 13 K2 at both shapes, K3 at both levels,
+              K4 and K5, and on the far-copy battery K4's window route, its
+              walk and its second pass, and K5's window route;
 9. timings  — each kernel at its main-path shape and on its small set
               beside its plain version, its bound on the card, and the
               end-to-end rates; for K4 also the host index, each pass of
@@ -202,7 +229,7 @@ no single PyTorch call computes any of these functions), and ``guarded``
 (its launches inside the guard bands of phase 11); K1, K2 and K3 also
 carry ``sharded_launches`` (the nccl rank's and each gloo rank's), and
 every kernel ``array_launches`` (its launches in phase 12: K1's, and 0 for
-the others).  The
+the others) and ``cpp_launches`` (its launches in phase 13).  The
 last line is the JSON result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
 """
@@ -290,8 +317,8 @@ def env_var(name: str, value: str):
 
 
 def stream_mode(mode: str):
-    """SNAPPY_TPU_STREAM_MODE set to ``mode`` inside, restored after."""
-    return env_var("SNAPPY_TPU_STREAM_MODE", mode)
+    """SNAPPY_TPU_TORCH_STREAM_MODE set to ``mode`` inside, restored after."""
+    return env_var("SNAPPY_TPU_TORCH_STREAM_MODE", mode)
 
 
 def array_route():
@@ -470,6 +497,138 @@ def run_sharded_ranks(world: int, out: str) -> list:
                 res[name] = f.read()
         results.append(res)
     return results
+
+
+def google_phase(dev, payload: bytes, inputs: list, tag: str) -> dict:
+    """Phase 13: the port against google/snappy (testing/cpp_differential.py).
+    Where libsnappy.so.1 loads here, (a) google/snappy's stream of the
+    payload through decode in grid mode (K4) and in scan mode (K5) and on
+    the array route, its streams of the serving batch through decode_batch
+    and of the batch's 64-128 KiB payloads through decode (K2 at 128 KiB),
+    and (b) google/snappy decoding the port's streams of the payload
+    (levels 1 and 2, the array route) and of the serving inputs
+    (encode_batch); where it does not, one line says so, and (b) holds the
+    port's streams to the pinned ones that google/snappy decoded where the
+    pins were made.  Then, live or pinned, the mutation streams, the seeds
+    and their mutants and the far-copy battery through every route of
+    cd.ROUTES against google/snappy's verdicts, beside the host C decoder
+    and the oracle.  Returns what phase 8 prints."""
+    from snappy_tpu_torch import api
+    from snappy_tpu_torch.ops import decode_stream as ds
+    from snappy_tpu_torch.testing import cpp_differential as cd
+    from snappy_tpu_torch.testing import cpp_snappy, oracle, payloads
+
+    def ctr():  # K4 window route, K4 walk, windows decoded again; K5 pass 2, K5 pass 1, steps walked
+        return (ds.LAUNCHES_WINDOWS, ds.LAUNCHES_WALK, ds.REDECODED,
+                ds.LAUNCHES_SCAN, ds.LAUNCHES_SCAN_WINDOWS, ds.WALKED)
+
+    def since(before):
+        return tuple(a - b for a, b in zip(ctr(), before))
+
+    t0 = time.perf_counter()
+    pins = cd.load_pins()
+    live = cpp_snappy.available()
+    res = {"live": live}
+    if live:
+        print(f"cpp: google/snappy loads on this host ({cpp_snappy.version()}): (a) and (b) run live")
+        g48 = cpp_snappy.encode(payload)
+        got = {}
+        before = ctr()
+        with stream_mode("grid"):
+            got["grid"] = api.decode(g48, device=dev)
+        grid_ctr = since(before)
+        before = ctr()
+        with stream_mode("scan"):
+            got["scan"] = api.decode(g48, device=dev)
+        scan_ctr = since(before)
+        with array_route():
+            got["array"] = api.decode(g48, device=dev)
+        for name, back in got.items():
+            assert back == payload, ("google -> port: decode of the payload's stream", name)
+        serving_g, expect_g = payloads.serving_batch(lambda ps: [cpp_snappy.encode(p) for p in ps])
+        assert api.decode_batch(serving_g, device=dev) == [e if e is not None else b"" for e in expect_g], \
+            "google -> port: decode_batch"
+        mid = [e for e in expect_g if e is not None and 65536 < len(e) <= 131072]
+        for p in mid:
+            assert api.decode(cpp_snappy.encode(p), device=dev) == p, ("google -> port: K2 at 128 KiB", len(p))
+        res.update(redecoded=grid_ctr[2], walked=scan_ctr[5])
+        print(f"cpp: (a) google/snappy's {len(g48)}-byte stream of the payload decodes back with decode in "
+              f"grid mode (K4 window-route launches, walks, windows decoded again: {grid_ctr[:3]}), in scan "
+              f"mode (K5 pass-2 launches, pass-1 launches, steps walked: {scan_ctr[3:]}) and on the array "
+              f"route; decode_batch of the serving batch re-encoded by google/snappy ({len(serving_g)} "
+              f"streams) gives its payloads; {len(mid)} google streams of 64-128 KiB decode with decode; "
+              f"REDECODED {grid_ctr[2]}, WALKED {scan_ctr[5]} {tag}")
+    else:
+        print(f"cpp: google/snappy (libsnappy.so.1) does not load on this host: (a) google -> port and (b) "
+              f"port -> google do not run live; the pinned part runs, on the verdicts pinned from "
+              f"{pins['library']}")
+    ports = {"raw_l1": api.encode(payload, level=1, device=dev), "raw_l2": api.encode(payload, level=2, device=dev)}
+    with array_route():
+        ports["array"] = api.encode(payload, device=dev)
+    batch = api.encode_batch(inputs, device=dev)
+    if live:
+        for name, s in ports.items():
+            assert cpp_snappy.decode(s) == payload, ("port -> google", name)
+        assert all(cpp_snappy.decode(s) == p for s, p in zip(batch, inputs)), "port -> google: encode_batch"
+        g_sizes = {"payload": len(g48), "serving_inputs": sum(len(cpp_snappy.encode(p)) for p in inputs)}
+        how = "google/snappy decodes each back to its payload (live)"
+    else:
+        port = pins["port_streams"]
+        for name, s in ports.items():
+            assert (len(s), cd.digest(s)) == (port[name]["len"], port[name]["sha256"]), ("pinned stream", name)
+            assert port[name]["google_decodes"], ("google/snappy did not decode the pinned stream", name)
+        assert (sum(map(len, batch)), cd.list_digest(batch)) == \
+            (port["encode_batch"]["len"], port["encode_batch"]["sha256"]), "pinned encode_batch streams"
+        assert port["encode_batch"]["google_decodes"]
+        g_sizes = pins["google_sizes"]
+        how = ("each stream is the one that google/snappy decoded back to its payload where the pins were "
+               "made (pinned, not live; google/snappy's sizes pinned there)")
+    sizes = {name: len(s) for name, s in ports.items()}
+    res["sizes"] = dict(sizes, encode_batch=sum(map(len, batch)), google=g_sizes)
+    print(f"cpp: (b) the port's streams of the {len(payload)}-byte payload: level 1 (K3) {sizes['raw_l1']} "
+          f"bytes, level 2 {sizes['raw_l2']}, array route {sizes['array']}, google/snappy "
+          f"{g_sizes['payload']} (level 1 / google {sizes['raw_l1'] / g_sizes['payload']:.6f}); encode_batch "
+          f"of the {len(inputs)} serving inputs {sum(map(len, batch))} bytes, google/snappy "
+          f"{g_sizes['serving_inputs']}; {how}")
+
+    sets = cd.battery(pins["seeds"])
+    if live:  # the pins against this host's library
+        for name, streams in sets.items():
+            assert [cd.digest(cpp_snappy.decode(s)) for s, _ in streams] == pins["verdicts"][name], \
+                ("google/snappy here differs from its pinned verdicts", name)
+    div = collections.Counter()  # (route, set, what differs, stream kind)
+    farcopy = {}
+    for name, streams in sets.items():
+        ss, kinds, want = [s for s, _ in streams], [k for _, k in streams], pins["verdicts"][name]
+        runs = [("host C", list(range(len(ss))), [payloads.host_raw_decode(s) for s in ss], [], ())]
+        if name != "mutation_streams":  # the oracle: pure Python, the small sets
+            runs.append(("oracle", list(range(len(ss))), [oracle.uncompress(s)[0] for s in ss], [], ()))
+        for route in cd.ROUTES:
+            before = ctr()
+            runs.append((route,) + cd.run_route(route, ss, dev) + (since(before),))
+        parts = []
+        for route, idx, outs, firsts, moved in runs:
+            for i, what in cd.disagreements(want, idx, outs):
+                div[route, name, what, kinds[i]] += 1
+            extra = ""
+            if route == "K4":
+                extra = f", window-route / walk launches, windows decoded again {moved[:3]}"
+            elif route == "K5":
+                extra = (f", K5 says {dict(collections.Counter(firsts))}, pass-2 / pass-1 launches, steps "
+                         f"walked {moved[3:]}")
+            parts.append(f"{route} {len(idx)} streams, {sum(o is not None for o in outs)} accepted{extra}")
+            if name == "farcopy":
+                farcopy[route] = (moved, collections.Counter(firsts))
+        print(f"cpp: {name}: {len(ss)} streams ({dict(collections.Counter(kinds))}), google/snappy accepts "
+              f"{sum(w is not None for w in want)} ({'live' if live else 'pinned'}): " + "; ".join(parts))
+    n = sum(map(len, sets.values()))
+    print(f"cpp: {n} streams on {len(cd.ROUTES)} device routes, the host C decoder and the oracle against "
+          f"google/snappy's verdicts and bytes: {sum(div.values())} divergences {dict(div)} (tolerance: "
+          f"exact); {time.perf_counter() - t0:.1f} s {tag}")
+    assert not div, ("google/snappy differential", dict(div))
+    assert farcopy["K5"][1]["ok"] > 0 and farcopy["K5"][1]["unsupported"] > 0, ("far-copy battery", farcopy)
+    res.update(streams=n, farcopy_k4=farcopy["K4"][0][:3], farcopy_k5=farcopy["K5"][0][3:])
+    return res
 
 
 def main() -> None:
@@ -1268,6 +1427,11 @@ def main() -> None:
           f"{dict(arr_div)} (tolerance: exact); {array_s:.1f} s {tag}")
     assert not arr_div, ("array route: mutation streams against the host C decoder", dict(arr_div))
 
+    # 13. google/snappy (after 12, before 11) ------------------------------------
+    reset_counts()
+    cpp = google_phase(dev, payload, captured["in"], tag)
+    cpp_launches = counts()
+
     # 11. guards (after 10, before 8 and 9) ------------------------------------
     # the card's stand-in for compute-sanitizer: each kernel through its
     # wrapper's _launch, every buffer it writes inside guard bands and every
@@ -1387,6 +1551,14 @@ def main() -> None:
     assert not any(n for name, n in array_launches.items() if name not in ("crc32c", "crc32c_long")) \
         and not any(array_routes), ("the array route launched a kernel other than K1", array_launches)
     assert one_shot_launches["crc32c"] == 1, ("the one-shot CRC's launches of crc32c", one_shot_launches)
+    print(f"counters: google/snappy phase (13) {cpp_launches}; on the far-copy battery K4 window-route / "
+          f"walk launches and windows decoded again {cpp['farcopy_k4']}, K5 pass-2 / pass-1 launches and "
+          f"steps walked {cpp['farcopy_k5']}")
+    for name in ("decode_chunks", "decode_chunks_big", "encode_blocks", "encode_blocks_l2", "decode_stream",
+                 "decode_stream_scan"):
+        assert cpp_launches[name] > 0, f"the google/snappy phase never launched {name}"
+    assert all(cpp["farcopy_k4"]) and cpp["farcopy_k5"][1] > 0, \
+        ("the far-copy battery: K4's window route, its walk and pass 2; K5's window route", cpp)
     launches = {name: path_launches[p][name] for name, (_, _, p) in KERNELS.items()}
     # the sharded paths (phase 10): one nccl rank, then each gloo rank
     print(f"counters: sharded path, one nccl rank {sharded_launches}")
@@ -1825,6 +1997,7 @@ def main() -> None:
             row["sharded_launches"] = {"nccl_world_1": sharded_launches[row["name"]],
                                        "gloo_world_2": [res["launches"][row["name"]] for res in ranks]}
         row["array_launches"] = array_launches[row["name"]]
+        row["cpp_launches"] = cpp_launches[row["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

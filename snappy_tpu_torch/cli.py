@@ -11,7 +11,7 @@ versions).  Framed files are compatible with other snappy tools (e.g.
     python -m snappy_tpu_torch.cli -d --raw file.rawsz
 
 A raw decode goes through ``api.decode``: streams over 128 KiB take the
-streaming decoder that ``SNAPPY_TPU_STREAM_MODE`` names (``grid``, the
+streaming decoder that ``SNAPPY_TPU_TORCH_STREAM_MODE`` names (``grid``, the
 default, or ``scan``), each in two launches where the host's block index
 finds the stream's 64 KiB windows and in one launch elsewhere.
 """

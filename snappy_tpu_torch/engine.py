@@ -235,7 +235,7 @@ def raw_uncompress(
     array route every stream takes one whole-stream array decode.  On the
     scalar route, a stream of at most 128 KiB out takes K2 at the
     big-window shape, any larger one the streaming decoder in the mode that
-    ``SNAPPY_TPU_STREAM_MODE`` names (engine.py:357-386): K4 in grid mode
+    ``SNAPPY_TPU_TORCH_STREAM_MODE`` names (engine.py:357-386): K4 in grid mode
     (the default), K5 in scan mode.  Scan mode's ``unsupported`` verdict (a
     copy reaching more than 64 KiB behind its window) routes the stream to
     K4, which serves every copy, as the JAX engine routes it to the XLA

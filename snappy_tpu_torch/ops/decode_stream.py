@@ -26,7 +26,7 @@ JAX counterpart: snappy_tpu/ops/decode_stream.py.
   number of steps.  It keeps the TPU kernel's verdicts, ``unsupported``
   included: a copy reaching more than 64 KiB behind its window's start.
 
-``decode_raw_stream_bytes`` picks the mode from ``SNAPPY_TPU_STREAM_MODE``
+``decode_raw_stream_bytes`` picks the mode from ``SNAPPY_TPU_TORCH_STREAM_MODE``
 (``grid`` by default), as the JAX function does.
 """
 
@@ -414,7 +414,7 @@ def decode_raw_stream_bytes(
     """Decode a raw tag stream of any size: (payload, "ok") or (None,
     reason), reason in {"invalid", "unsupported"} (decode_stream.py:654-728).
 
-    ``mode`` (default: ``SNAPPY_TPU_STREAM_MODE``, else ``"grid"``): "grid"
+    ``mode`` (default: ``SNAPPY_TPU_TORCH_STREAM_MODE``, else ``"grid"``): "grid"
     runs K4, which serves every copy, "scan" runs K5, which reports a copy
     reaching more than 64 KiB behind its window's start as "unsupported".
     Both take their window route where ``window_index`` finds the stream's
@@ -424,9 +424,9 @@ def decode_raw_stream_bytes(
     every step in one launch.  A zero declared length takes scan mode in
     either, as in the JAX function."""
     if mode is None:
-        mode = os.environ.get("SNAPPY_TPU_STREAM_MODE", "grid")
+        mode = os.environ.get("SNAPPY_TPU_TORCH_STREAM_MODE", "grid")
     if mode not in ("grid", "scan"):
-        raise ValueError(f"SNAPPY_TPU_STREAM_MODE must be grid|scan: {mode!r}")
+        raise ValueError(f"SNAPPY_TPU_TORCH_STREAM_MODE must be grid|scan: {mode!r}")
     dev = config.resolve_device(device)
     grid = mode == "grid" and declared > 0
     in_offs = window_index(body, declared) if declared > 0 else None

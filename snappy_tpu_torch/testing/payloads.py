@@ -40,7 +40,12 @@ JAX counterpart: none.  ``chip_smoke.py`` and the tests share these:
   order and the CRC checked before the fit.
 * ``decoder_cases`` and ``mutation_streams`` — named cases of the chunk
   decoder's batch logic, and seeded streams and mutants for the decoder
-  differential against the host C decoder.
+  differential against the host C decoder; ``mutate``, one mutation of
+  a stream, for those and google/snappy's seed streams
+  (``testing/cpp_differential.py``).
+* ``farcopy_placement_cases`` — the far-copy battery: random legal
+  streams with copies reaching more than 64 KiB back, near copies and
+  literals placed at and across the 64 KiB boundaries.
 * ``MALFORMED_RAW`` — a copy of ``tests/test_oracle.MALFORMED_RAW`` (a test
   pins the copy equal to the original), and ``malformed_chunks`` made from
   it for the chunk decoder.
@@ -948,24 +953,37 @@ def mutation_streams(count: int, seed: int = 73) -> List[Tuple[bytes, str]]:
         else:
             word = rng.bytes(int(rng.ints(2, 17, 1)[0])).tobytes()
             p = (word * (n // len(word) + 1))[: n // 2] + rng.bytes(n - n // 2).tobytes()
-        s = bytearray(varint.encode_uint32(len(p)) + b"".join(
-            host_codec.encode_block(p[q : q + FRAME]) for q in range(0, len(p), FRAME)))
+        s = varint.encode_uint32(len(p)) + b"".join(
+            host_codec.encode_block(p[q : q + FRAME]) for q in range(0, len(p), FRAME))
         kind = "valid"
         if int(rng.ints(0, 10, 1)[0]) < 6:
-            kind = ("bitflip", "truncate", "insert", "duplicate")[int(rng.ints(0, 4, 1)[0])]
-            if kind == "bitflip":
-                s[int(rng.ints(0, len(s), 1)[0])] ^= 1 << int(rng.ints(0, 8, 1)[0])
-            elif kind == "truncate":
-                del s[int(rng.ints(1, len(s), 1)[0]) :]
-            elif kind == "insert":
-                q = int(rng.ints(0, len(s) + 1, 1)[0])
-                s[q:q] = rng.bytes(int(rng.ints(1, 4, 1)[0])).tobytes()
-            else:
-                lo = int(rng.ints(0, len(s) - 2, 1)[0])
-                hi = min(len(s), lo + int(rng.ints(1, 8, 1)[0]))
-                s[hi:hi] = s[lo:hi]
-        out.append((bytes(s), kind))
+            kind = MUTATIONS[int(rng.ints(0, 4, 1)[0])]
+            s = mutate(s, kind, rng)
+        out.append((s, kind))
     return out
+
+
+MUTATIONS = ("bitflip", "truncate", "insert", "duplicate")
+
+
+def mutate(stream: bytes, kind: str, rng: Rand) -> bytes:
+    """``stream`` mutated once by ``kind`` (one of ``MUTATIONS``): a bit
+    flip, a truncation, an insertion of 1-3 random bytes, or a duplication
+    of up to 7 bytes (tests/test_mutation_fuzz.py's ``_mutate`` on
+    ``Rand``).  ``stream`` holds at least 3 bytes."""
+    s = bytearray(stream)
+    if kind == "bitflip":
+        s[int(rng.ints(0, len(s), 1)[0])] ^= 1 << int(rng.ints(0, 8, 1)[0])
+    elif kind == "truncate":
+        del s[int(rng.ints(1, len(s), 1)[0]) :]
+    elif kind == "insert":
+        q = int(rng.ints(0, len(s) + 1, 1)[0])
+        s[q:q] = rng.bytes(int(rng.ints(1, 4, 1)[0])).tobytes()
+    else:
+        lo = int(rng.ints(0, len(s) - 2, 1)[0])
+        hi = min(len(s), lo + int(rng.ints(1, 8, 1)[0]))
+        s[hi:hi] = s[lo:hi]
+    return bytes(s)
 
 
 def host_raw_decode(stream: bytes) -> Optional[bytes]:
@@ -982,6 +1000,101 @@ def host_raw_decode(stream: bytes) -> Optional[bytes]:
     body = stream[read:]
     got, written = host_codec.decode_tags(body, min(declared, 22 * len(body)))
     return got if got is not None and written == declared else None
+
+
+class _Placed:
+    """A raw stream built op by op with its payload, for
+    ``farcopy_placement_cases``.  ``aligned``: every op is cut at each
+    64 KiB output boundary, so the window index builds; else ops run
+    across the boundaries."""
+
+    def __init__(self, aligned: bool):
+        self.aligned = aligned
+        self.body, self.out = bytearray(), bytearray()
+
+    def room(self) -> int:
+        """Output bytes to the next 64 KiB boundary."""
+        return FRAME - len(self.out) % FRAME
+
+    def lit(self, data: bytes) -> None:
+        while data:
+            n = min(len(data), self.room()) if self.aligned else len(data)
+            self.body += literal(data[:n])
+            self.out += data[:n]
+            data = data[n:]
+
+    def copy(self, off: int, n: int) -> None:
+        """Copy tags of at most 64 bytes: a copy-4 past 64 KiB back, a
+        copy-1 where it fits, else a copy-2; a piece under 4 bytes as a
+        literal of its bytes, as e43 writes it."""
+        while n > 0:
+            c = min(n, 64, self.room()) if self.aligned else min(n, 64)
+            start = len(self.out)
+            for _ in range(c):
+                self.out.append(self.out[-off])
+            if c < 4:
+                self.body += literal(bytes(self.out[start:]))
+            elif off > 65535:
+                self.body += copy4(off, c)
+            elif off < 2048 and c <= 11:
+                self.body += bytes([1 | ((c - 4) << 2) | ((off >> 8) << 5), off & 0xFF])
+            else:
+                self.body += copy2(off, c)
+            n -= c
+
+
+def farcopy_placement_cases(seed: int = 89, count: int = 48) -> List[Tuple[bytes, bytes]]:
+    """(raw stream, payload) pairs shaped like
+    experiments/e43_hw_farcopy_placement.py: random legal streams of a 90-150
+    KB random history, then 40-139 ops: 45% copies reaching more than 64 KiB
+    back (copy-4), 25% near copies of 4-299 bytes (a quarter of them at
+    offsets 1-8, which overlap themselves), 30% literals of 1-3,999 random
+    bytes; after an op, three times in ten, a literal brings the output to
+    within 70 bytes of a 64 KiB boundary, so the next op starts at or
+    straddles it.  Three kinds, stream ``k`` of kind ``k % 3``:
+
+    0. every op cut at each 64 KiB boundary (the window index builds), and
+       every far copy within 64 KiB of its window's start and inside it:
+       scan mode (K5) serves every copy;
+    1. cut at the boundaries, far copies reaching anywhere back: K4's
+       window route decodes the windows whose copies reach an earlier one
+       again, and scan mode says unsupported where a copy reaches past its
+       history;
+    2. ops across the boundaries (no window index): K4's whole-stream walk,
+       K5 without an index.
+
+    The generators here use ``Rand``; the callers check each stream's
+    construction with ``testing.oracle``."""
+    rng = Rand(seed)
+
+    def draw(lo: int, hi: int) -> int:
+        return int(rng.ints(lo, hi, 1)[0])
+
+    cases = []
+    for k in range(count):
+        kind = k % 3
+        s = _Placed(aligned=kind < 2)
+        s.lit(rng.bytes(draw(90_000, 150_000)).tobytes())
+        for _ in range(draw(40, 140)):
+            r = draw(0, 100)
+            n = draw(4, 300)
+            pos = len(s.out) % FRAME
+            far = r < 45
+            if far and kind > 0:
+                s.copy(draw(65_537, len(s.out) + 1), n)
+            elif far and pos > 1:  # within the scan's history, and inside this window
+                s.copy(draw(65_537, min(FRAME + pos, len(s.out)) + 1), min(n, s.room()))
+            elif r < 70:  # near (and kind 0's far copies at a window's first byte)
+                near = draw(1, 9) if draw(0, 4) == 0 else draw(1, min(len(s.out), FRAME))
+                s.copy(near, n)
+            else:
+                s.lit(rng.bytes(draw(1, 4000)).tobytes())
+            if draw(0, 10) < 3:
+                to_b = (-len(s.out)) % FRAME
+                if 0 < to_b < 3000:
+                    s.lit(rng.bytes(to_b - draw(0, min(to_b, 70))).tobytes())
+        cases.append((varint.encode_uint32(len(s.out)) + bytes(s.body), bytes(s.out)))
+    return cases
 
 
 def frame(cid: int, payload: bytes) -> bytes:

@@ -63,7 +63,7 @@ def test_raw_decode_in_scan_mode(tmp_path, monkeypatch):
     body, m, payload = payloads.scan_edge_cases()[1]
     from snappy_tpu_torch.formats import varint
 
-    monkeypatch.setenv("SNAPPY_TPU_STREAM_MODE", "scan")
+    monkeypatch.setenv("SNAPPY_TPU_TORCH_STREAM_MODE", "scan")
     assert both(tmp_path, "far", varint.encode_uint32(m) + body, ["-d", "--raw"]) == (0, payload)
 
 

@@ -104,15 +104,28 @@ def test_decode_raw_stream_bytes_matches_jax():
 
 def test_mode_from_the_environment(monkeypatch):
     body, m, payload = payloads.scan_edge_cases()[1]
-    monkeypatch.setenv("SNAPPY_TPU_STREAM_MODE", "scan")
+    monkeypatch.setenv("SNAPPY_TPU_TORCH_STREAM_MODE", "scan")
     assert decode_stream.decode_raw_stream_bytes(body, m, device="cpu") == (None, "unsupported")
-    monkeypatch.setenv("SNAPPY_TPU_STREAM_MODE", "grid")
+    monkeypatch.setenv("SNAPPY_TPU_TORCH_STREAM_MODE", "grid")
     assert decode_stream.decode_raw_stream_bytes(body, m, device="cpu") == (payload, "ok")
-    monkeypatch.delenv("SNAPPY_TPU_STREAM_MODE")
+    monkeypatch.delenv("SNAPPY_TPU_TORCH_STREAM_MODE")
     assert decode_stream.decode_raw_stream_bytes(body, m, device="cpu") == (payload, "ok")
-    monkeypatch.setenv("SNAPPY_TPU_STREAM_MODE", "warp")
+    monkeypatch.setenv("SNAPPY_TPU_TORCH_STREAM_MODE", "warp")
     with pytest.raises(ValueError):
         decode_stream.decode_raw_stream_bytes(body, m, device="cpu")
+
+
+def test_the_jax_variable_alone_leaves_grid_mode(monkeypatch, spies):
+    """The JAX package's stream-mode variable names its own mode, not the
+    port's: with it set to scan alone, the port decodes in grid mode (K4),
+    where scan mode would say unsupported."""
+    body, m, payload = payloads.scan_edge_cases()[1]
+    monkeypatch.delenv("SNAPPY_TPU_TORCH_STREAM_MODE", raising=False)
+    jax_variable = "SNAPPY_TPU_TORCH_STREAM_MODE".replace("TORCH_", "")  # the JAX package's name
+    monkeypatch.setenv(jax_variable, "scan")
+    assert decode_stream.decode_raw_stream_bytes(body, m, device="cpu") == (payload, "ok")
+    assert engine.raw_uncompress(varint.encode_uint32(m) + body, device="cpu") == (payload, "ok")
+    assert spies == ["decode_stream", "decode_stream"]
 
 
 def test_zero_declared_takes_scan_mode_in_either():
@@ -148,7 +161,7 @@ def test_engine_route(monkeypatch, spies, mode, k, route, reason):
     else:  # a truncated stream
         body, m, _ = payloads.scan_edge_cases()[0]
         body, payload = body[:-3], None
-    monkeypatch.setenv("SNAPPY_TPU_STREAM_MODE", mode)
+    monkeypatch.setenv("SNAPPY_TPU_TORCH_STREAM_MODE", mode)
     stream = varint.encode_uint32(m) + body
     assert engine.raw_uncompress(stream, device="cpu") == (payload, reason)
     assert spies == route
