@@ -216,7 +216,22 @@ Phases, each reported on its own lines:
               framed encode, framed decode and raw encode on the nccl rank
               beside the engine's call on one device (engine, sharded,
               sharded, engine), each gloo rank's times, and each
-              all-gather's bytes, bytes per chunk and ms.
+              all-gather's bytes, bytes per chunk and ms;
+14. entry   — (last, after 9, once 10 has destroyed its group) the
+              flagship step and the dry run (snappy_tpu_torch/entry.py, the
+              counterpart of __graft_entry__.py): (a) entry()'s example
+              step on the card on the kernel route and on the array route
+              (SNAPPY_TPU_TORCH_DEVICE_KERNEL=xla) equal to the step on the
+              CPU (the plain versions): crcs, totals and each enc[i,
+              :totals[i]]; (b) the step on the payload's 769 frames of
+              64 KiB on both routes: its CRCs equal the stored CRCs of the
+              engine's framed stream on that route (phases 4 and 12), each
+              compressed chunk's body equals enc[k, :totals[k]], K1
+              launches once a step and K3 once on the kernel route and
+              never on the array route, no other kernel; the step timed
+              with CUDA events (mean of 10 after a warm-up) and its peak
+              device memory; (c) dryrun_multichip(torch.cuda.device_count())
+              and its line; the launches of (b) and (c) counted as in 8.
 
 Any failure raises and the exit code is not 0.  The line before the last
 is a JSON object of the kernels: per kernel, the launch count of its path,
@@ -229,7 +244,10 @@ no single PyTorch call computes any of these functions), and ``guarded``
 (its launches inside the guard bands of phase 11); K1, K2 and K3 also
 carry ``sharded_launches`` (the nccl rank's and each gloo rank's), and
 every kernel ``array_launches`` (its launches in phase 12: K1's, and 0 for
-the others) and ``cpp_launches`` (its launches in phase 13).  The
+the others), ``cpp_launches`` (its launches in phase 13),
+``entry_launches`` (per route, its launches in one step of phase 14 at
+full width) and ``dryrun_launches`` (its launches in this process during
+the dry run of phase 14: none where the dry run spawns its ranks).  The
 last line is the JSON result.  Exits nonzero, printing no result, where torch.cuda is not
 available.
 """
@@ -245,7 +263,6 @@ import json
 import multiprocessing
 import os
 import platform
-import socket
 import statistics
 import subprocess
 import sys
@@ -400,12 +417,6 @@ def block_batch(blocks, dev):
     return torch.from_numpy(rows).to(dev), lens.to(dev)
 
 
-def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def gathers(trace) -> list:
     """A mesh's trace as (name, rows, bytes sent, ms) per all-gather."""
     return [(g.name, g.rows, g.sent, g.ms) for g in trace]
@@ -468,8 +479,10 @@ def run_sharded_ranks(world: int, out: str) -> list:
     CUDA is up in this process) and return each rank's results.  Raises if
     a rank fails or is still running after RANK_WAIT_S; kills every rank
     that is left."""
+    from snappy_tpu_torch.parallel import multihost
+
     ctx = multiprocessing.get_context("spawn")
-    port = free_port()
+    port = multihost.free_port()
     procs = [ctx.Process(target=sharded_rank, args=(r, world, port, out)) for r in range(world)]
     for p in procs:
         p.start()
@@ -1289,7 +1302,7 @@ def main() -> None:
     from snappy_tpu_torch.parallel import mesh as pmesh
     from snappy_tpu_torch.parallel import multihost
 
-    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl",
                          timeout=timedelta(seconds=GROUP_TIMEOUT_S))
     world1 = pmesh.default_mesh(1, device=dev)
     assert world1.group is not None and world1.collective_device == dev, "a one-rank nccl mesh"
@@ -1992,7 +2005,82 @@ def main() -> None:
                       f"bytes sent ({sent / max(share, 1):.1f} per chunk of the largest share, "
                       f"{share} chunks), {ms:.4f} ms {tag}")
     dist.destroy_process_group()
+
+    # 14. the flagship step and the dry run (after 10's group is gone) --------
+    from snappy_tpu_torch import entry
+
+    step_launches = {}
+    fn, ex_args = entry.entry()
+    assert all(a.device == dev for a in ex_args), "entry()'s example arguments are not on the card"
+    _, cpu_args = entry.entry("cpu")
+    full = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
+    # the engine's framed streams of the payload on each route: stored CRCs
+    # and compressed chunk bodies
+    route_streams = {"scalar": stream, "array": arr_framed[1]}
+    for route, ctx in (("scalar", contextlib.nullcontext), ("array", array_route)):
+        with ctx():
+            got = [t.cpu().numpy() for t in fn(*ex_args)]
+            want = [t.numpy() for t in fn(*cpu_args)]  # the plain versions
+            assert got[0].shape == want[0].shape and np.array_equal(got[0], want[0]), ("entry crcs", route)
+            assert np.array_equal(got[2], want[2]), ("entry totals", route, got[2], want[2])
+            assert got[1].shape == want[1].shape == (2, entry.max_comp(entry.EXAMPLE_B)), ("entry enc", route)
+            for i, t in enumerate(want[2].tolist()):
+                assert np.array_equal(got[1][i, :t], want[1][i, :t]), ("entry enc", route, i)
+            print(f"entry: ({route} route) the example step on {dev}: frames {tuple(ex_args[0].shape)} -> "
+                  f"crcs {got[0].tolist()}, enc {got[1].shape}, totals {got[2].tolist()}, equal to the step "
+                  f"on the CPU (plain versions; tolerance: exact)")
+            reset_counts()
+            crcs_d, enc_d, totals_d = fn(*full)
+            torch.cuda.synchronize()
+            step_launches[route] = counts()
+            crcs_h, totals_h = crcs_d.cpu().numpy(), totals_d.cpu().numpy()
+            enc_h = enc_d.cpu().numpy()
+            s = route_streams[route]
+            chunks = framing.scan_frames(s, len(C.FRAMING_HEADER))
+            assert len(chunks) == len(crcs_h) == full[0].shape[0], ("entry at full width", route, len(chunks))
+            n_comp = 0
+            for k, ch in enumerate(chunks):
+                stored = int.from_bytes(s[ch.data_pos : ch.data_pos + 4], "little")
+                assert int(crcs_h[k]) == stored, ("entry crc against the framed stream", route, k)
+                if ch.id == C.CHUNK_COMPRESSED:
+                    blob = s[ch.data_pos + 4 : ch.data_pos + ch.data_len]
+                    _, skip = varint.decode_uint32(blob[:5])
+                    assert enc_h[k, : totals_h[k]].tobytes() == blob[skip:], ("entry enc against the stream", route, k)
+                    n_comp += 1
+            others = {k: v for k, v in step_launches[route].items()
+                      if k not in ("crc32c", "crc32c_long", "encode_blocks") and v}
+            want_k3 = 1 if route == "scalar" else 0
+            assert step_launches[route]["crc32c"] == 1 and step_launches[route]["encode_blocks"] == want_k3 \
+                and not others, ("entry launches", route, step_launches[route])
+            del crcs_d, enc_d, totals_d
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            step_ms = event_ms(lambda: fn(*full), 10)
+            peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+            moved = len(payload) + int(totals_h.sum()) + 8 * len(totals_h)
+            step_bound, step_by = bound(moved)
+            print(f"entry: ({route} route) the step at full width, {full[0].shape[0]} frames of 64 KiB: "
+                  f"{len(chunks)} CRCs equal the stored CRCs of the engine's framed stream on this route, "
+                  f"{n_comp} compressed chunks' bodies equal enc[:totals]; launches K1 "
+                  f"{step_launches[route]['crc32c']}, K3 {step_launches[route]['encode_blocks']}, others 0")
+            print(f"timing: entry step ({route} route) {step_ms:.4f} ms for {full[0].shape[0]} x 64 KiB "
+                  f"(CUDA events, mean of 10 after a warm-up; bound {step_bound:.4f} ms by {step_by}: "
+                  f"{moved} bytes); peak device memory above the inputs {peak_mb:.1f} MB {tag}")
+    reset_counts()
+    t_dry = time.perf_counter()
+    dry = entry.dryrun_multichip(torch.cuda.device_count())
+    dry_launches = counts()
+    if torch.cuda.device_count() == 1:  # the legs ran in this process
+        assert dry_launches["crc32c"] and dry_launches["encode_blocks"] and \
+            dry_launches["decode_chunks"] + dry_launches["decode_chunks_big"], ("dry run launches", dry_launches)
+    print(f"entry: dryrun_multichip({torch.cuda.device_count()}) in {time.perf_counter() - t_dry:.2f} s: "
+          f"payload {dry['payload']} B, framed {dry['framed']} B, raw {dry['raw']} B, balance "
+          f"{dry['balance']:.2f}; launches in this process {dry_launches} {tag}")
+
     for row in rows:
+        row["entry_launches"] = {route: step_launches[route][row["name"]] for route in step_launches}
+        row["dryrun_launches"] = dry_launches[row["name"]]
         if row["name"] in SHARDED:
             row["sharded_launches"] = {"nccl_world_1": sharded_launches[row["name"]],
                                        "gloo_world_2": [res["launches"][row["name"]] for res in ranks]}

@@ -137,24 +137,25 @@ def raw_compress_batch(
     return results
 
 
-def _encode_rows(rows: torch.Tensor, lens: torch.Tensor, level: int):
-    """The tag streams of the blocks in ``rows`` (uint8 [N, 65536], int32
-    lengths, on one device) as (uint8 [N, W], int32 lengths): K3 at
-    ``level``, or on the array route the array encoder over slabs of rows,
-    ``level`` ignored (engine.py:234-236, :596-598)."""
+def _encode_rows(rows: torch.Tensor, lens: torch.Tensor, level: int, width: int = _MAX_COMP_BLOCK):
+    """The tag streams of the blocks in ``rows`` (uint8 [N, B], B <= 65536,
+    int32 lengths, on one device) as (uint8 [N, W], int32 lengths): K3 at
+    ``level`` (W = ENC_CAP), or on the array route the array encoder over
+    slabs of rows into W = ``width`` columns, ``level`` ignored
+    (engine.py:234-236, :596-598)."""
     if not _array_route():
         return encode_blocks.encode_blocks(rows, lens, level)
     n = rows.shape[0]
-    enc = torch.empty((n, _MAX_COMP_BLOCK), dtype=torch.uint8, device=rows.device)
+    enc = torch.empty((n, width), dtype=torch.uint8, device=rows.device)
     totals = torch.empty(n, dtype=torch.int32, device=rows.device)
-    col = torch.arange(_BLOCK, device=rows.device)
-    step = _slab_rows(_MAX_COMP_BLOCK)
+    col = torch.arange(rows.shape[1], device=rows.device)
+    step = _slab_rows(width)
     for lo in range(0, n, step):
         hi = min(n, lo + step)
         # the array encoder's match lengths see the bytes past a block's
         # end before they are cut to it: zero them, as the JAX engine pads
         block = rows[lo:hi].masked_fill(col >= lens[lo:hi, None], 0)
-        enc[lo:hi], totals[lo:hi] = encode_array.encode_blocks(block, lens[lo:hi], _MAX_COMP_BLOCK)
+        enc[lo:hi], totals[lo:hi] = encode_array.encode_blocks(block, lens[lo:hi], width)
     return enc, totals
 
 

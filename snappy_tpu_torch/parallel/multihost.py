@@ -23,6 +23,7 @@ configured one, ``device`` by default), not the process group's.
 from __future__ import annotations
 
 import os
+import socket
 from datetime import timedelta
 from typing import Optional, Tuple
 
@@ -35,6 +36,14 @@ from ..formats import constants as C
 from ..formats import framing
 
 TIMEOUT = timedelta(minutes=10)  # of the group's collectives, unless given
+
+
+def free_port() -> int:
+    """A TCP port free on this host now, for a local group's coordinator
+    (``initialize(f"127.0.0.1:{free_port()}", ...)``)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def initialize(
