@@ -135,8 +135,8 @@ Phases, each reported on its own lines:
 13. cpp     — (runs after 12, before 11) the port against google/snappy
               (testing/cpp_differential.py): where libsnappy.so.1 loads on
               this host, (a) google/snappy's stream of the payload decodes
-              back with decode in grid mode (K4's window route; REDECODED
-              printed), in scan mode (K5's window route; WALKED printed)
+              back with decode in grid mode (K4's window route; k4.redecoded
+              printed), in scan mode (K5's window route; k5.walked printed)
               and on the array route, its streams of the serving batch
               with decode_batch (K2 at both shapes) and of the batch's
               64-128 KiB payloads with decode (K2 at 128 KiB), and (b)
@@ -428,7 +428,7 @@ def sharded_rank(rank: int, world: int, port: int, out: str) -> None:
     sharded paths and the span API on the 48 MiB payload, counts its K1, K2
     and K3 launches, times the sharded paths, and writes its results and
     its span bytes under ``out``."""
-    from snappy_tpu_torch.ops import crc32c, decode_chunks, encode_blocks
+    from snappy_tpu_torch import telemetry
     from snappy_tpu_torch.parallel import mesh as pmesh
     from snappy_tpu_torch.parallel import multihost
     from snappy_tpu_torch.testing import payloads
@@ -438,12 +438,12 @@ def sharded_rank(rank: int, world: int, port: int, out: str) -> None:
                          timeout=timedelta(seconds=GROUP_TIMEOUT_S))
     m = pmesh.default_mesh(world, device=dev)
     payload = payloads.mixed_payload()
-    crc32c.LAUNCHES = decode_chunks.LAUNCHES = encode_blocks.LAUNCHES = 0
+    telemetry.reset_counters()
     framed = pmesh.sharded_framed_compress(payload, m)
     raw = pmesh.sharded_raw_compress(payload, m)
     back = pmesh.sharded_framed_uncompress(framed, m)
-    launches = {"crc32c": crc32c.LAUNCHES, "decode_chunks": decode_chunks.LAUNCHES,
-                "encode_blocks": encode_blocks.LAUNCHES}
+    launches = {"crc32c": telemetry.counter("k1.launches"), "decode_chunks": telemetry.counter("k2.launches"),
+                "encode_blocks": telemetry.counter("k3.launches")}
     span = len(payload) // (world * 65536) * 65536
     blob, off, total = multihost.compress_framed_span(
         payload[:span] if rank == 0 else payload[span:], device=dev)
@@ -526,14 +526,14 @@ def google_phase(dev, payload: bytes, inputs: list, tag: str) -> dict:
     and their mutants and the far-copy battery through every route of
     cd.ROUTES against google/snappy's verdicts, beside the host C decoder
     and the oracle.  Returns what phase 8 prints."""
-    from snappy_tpu_torch import api
-    from snappy_tpu_torch.ops import decode_stream as ds
+    from snappy_tpu_torch import api, telemetry
     from snappy_tpu_torch.testing import cpp_differential as cd
     from snappy_tpu_torch.testing import cpp_snappy, oracle, payloads
 
     def ctr():  # K4 window route, K4 walk, windows decoded again; K5 pass 2, K5 pass 1, steps walked
-        return (ds.LAUNCHES_WINDOWS, ds.LAUNCHES_WALK, ds.REDECODED,
-                ds.LAUNCHES_SCAN, ds.LAUNCHES_SCAN_WINDOWS, ds.WALKED)
+        return tuple(telemetry.counter(c) for c in (
+            "k4.launches_windows", "k4.launches_walk", "k4.redecoded",
+            "k5.launches", "k5.launches_windows", "k5.walked"))
 
     def since(before):
         return tuple(a - b for a, b in zip(ctr(), before))
@@ -570,7 +570,7 @@ def google_phase(dev, payload: bytes, inputs: list, tag: str) -> dict:
               f"mode (K5 pass-2 launches, pass-1 launches, steps walked: {scan_ctr[3:]}) and on the array "
               f"route; decode_batch of the serving batch re-encoded by google/snappy ({len(serving_g)} "
               f"streams) gives its payloads; {len(mid)} google streams of 64-128 KiB decode with decode; "
-              f"REDECODED {grid_ctr[2]}, WALKED {scan_ctr[5]} {tag}")
+              f"k4.redecoded {grid_ctr[2]}, k5.walked {scan_ctr[5]} {tag}")
     else:
         print(f"cpp: google/snappy (libsnappy.so.1) does not load on this host: (a) google -> port and (b) "
               f"port -> google do not run live; the pinned part runs, on the verdicts pinned from "
@@ -648,7 +648,7 @@ def main() -> None:
     # 1. setup ---------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available")
-    from snappy_tpu_torch import api, cli, config, engine
+    from snappy_tpu_torch import api, cli, config, engine, telemetry
     from snappy_tpu_torch.formats import constants as C
     from snappy_tpu_torch.formats import framing, varint
     from snappy_tpu_torch.ops import (
@@ -657,32 +657,29 @@ def main() -> None:
     from snappy_tpu_torch.streams import aio, sync
     from snappy_tpu_torch.testing import payloads
 
-    def counts():
-        return {
-            "crc32c": crc32c.LAUNCHES,
-            "decode_chunks": decode_chunks.LAUNCHES,
-            "encode_blocks": encode_blocks.LAUNCHES,
-            "encode_blocks_l2": encode_blocks.LAUNCHES_L2,
-            "decode_chunks_big": decode_chunks.LAUNCHES_BIG,
-            "decode_stream": decode_stream.LAUNCHES,
-            "decode_stream_scan": decode_stream.LAUNCHES_SCAN,
-            "crc32c_mma": crc32c_mma.LAUNCHES,
-            "crc32c_long": crc32c.LAUNCHES,
-        }
+    counted = {  # chip_smoke's row key: the telemetry counter it prints
+        "crc32c": "k1.launches",
+        "decode_chunks": "k2.launches",
+        "encode_blocks": "k3.launches",
+        "encode_blocks_l2": "k3.launches_l2",
+        "decode_chunks_big": "k2.launches_big",
+        "decode_stream": "k4.launches",
+        "decode_stream_scan": "k5.launches",
+        "crc32c_mma": "k6.launches",
+        "crc32c_long": "k1.launches",
+    }
 
-    def reset_counts():
-        crc32c.LAUNCHES = decode_chunks.LAUNCHES = decode_chunks.LAUNCHES_BIG = 0
-        encode_blocks.LAUNCHES = encode_blocks.LAUNCHES_L2 = decode_stream.LAUNCHES = 0
-        decode_stream.LAUNCHES_SCAN = crc32c_mma.LAUNCHES = 0
-        decode_stream.LAUNCHES_WINDOWS = decode_stream.LAUNCHES_WALK = decode_stream.REDECODED = 0
-        decode_stream.LAUNCHES_SCAN_WINDOWS = decode_stream.WALKED = 0
+    def counts():
+        return {key: telemetry.counter(name) for key, name in counted.items()}
+
+    reset_counts = telemetry.reset_counters
 
     def routes():
-        return (decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK, decode_stream.REDECODED)
+        return tuple(telemetry.counter(c) for c in ("k4.launches_windows", "k4.launches_walk", "k4.redecoded"))
 
     def scan_routes():
-        return (decode_stream.LAUNCHES_SCAN, decode_stream.LAUNCHES_SCAN_WINDOWS,
-                decode_stream.LAUNCHES_WALK, decode_stream.LAUNCHES_WINDOWS, decode_stream.WALKED)
+        return tuple(telemetry.counter(c) for c in (
+            "k5.launches", "k5.launches_windows", "k4.launches_walk", "k4.launches_windows", "k5.walked"))
 
     dev = torch.device("cuda:0")
     card = card_label()
@@ -868,10 +865,10 @@ def main() -> None:
             offs_d = None if offs_h is None else offs_h.to(dev)
             out_d = torch.zeros(max(m, nwin * 65536, 1), dtype=torch.uint8, device=dev)
             state_d = torch.empty(decode_stream.STATE_WORDS + 1, dtype=torch.int64, device=dev)
-            before = decode_stream.LAUNCHES_SCAN_WINDOWS
+            before = telemetry.counter("k5.launches_windows")
             state, wr = decode_stream.decode_stream_scan(
                 comp_d, m, out_d, offs_d, state_d, None if offs_h is None else offs_h.numpy())
-            assert decode_stream.LAUNCHES_SCAN_WINDOWS - before == (offs_h is not None), "K5 route"
+            assert telemetry.counter("k5.launches_windows") - before == (offs_h is not None), "K5 route"
             assert torch.equal(state.cpu(), pstate) and torch.equal(wr.cpu(), pwr), \
                 ("decode_stream_scan state", len(body), m, nwin, state.cpu().tolist(), pstate.tolist())
             d = (out_d[:w].cpu().to(torch.int32) - pout[:w].to(torch.int32)).abs()
@@ -943,7 +940,7 @@ def main() -> None:
     divergences = collections.Counter()  # (route, what differs, mutation kind)
 
     def k2_and_k4():
-        return (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG, decode_stream.LAUNCHES)
+        return tuple(telemetry.counter(c) for c in ("k2.launches", "k2.launches_big", "k4.launches"))
 
     before = k2_and_k4()
     m_batch = engine.raw_uncompress_batch(m_streams, device=dev)

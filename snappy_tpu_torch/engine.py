@@ -27,6 +27,12 @@ engine's power-of-two batch buckets bounded compile shapes; the results
 do not depend on either).  ``level`` is ignored there, as in the JAX
 engine.  K1 takes the CRCs on both routes.  A failure on the array route
 raises: nothing falls back to the kernels.
+
+The framed paths' stages are telemetry spans (telemetry.py):
+``engine.scan``, ``engine.decode`` (the device part of a framed decode),
+``engine.stage`` (host staging of bodies and rows), ``engine.upload``,
+``read.engine`` (the read-backs), ``engine.assemble`` and
+``engine.tobytes``.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import config
+from . import config, telemetry
 from .formats import constants as C
 from .formats import framing, varint
 from .ops import (
@@ -65,11 +71,13 @@ def _split_blocks(arr: np.ndarray, dev: torch.device):
     lengths [nf]) on ``dev``: one host copy, one upload."""
     n = len(arr)
     nf = max(1, -(-n // _BLOCK))
-    host = torch.zeros(nf * _BLOCK, dtype=torch.uint8)
-    host.numpy()[:n] = arr
-    flens = np.full(nf, _BLOCK, dtype=np.int32)
-    flens[-1] = n - (nf - 1) * _BLOCK
-    return host.view(nf, _BLOCK).to(dev), torch.from_numpy(flens).to(dev)
+    with telemetry.span("engine.stage"):
+        host = torch.zeros(nf * _BLOCK, dtype=torch.uint8)
+        host.numpy()[:n] = arr
+        flens = np.full(nf, _BLOCK, dtype=np.int32)
+        flens[-1] = n - (nf - 1) * _BLOCK
+    with telemetry.span("engine.upload"):
+        return host.view(nf, _BLOCK).to(dev), torch.from_numpy(flens).to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -377,27 +385,29 @@ def framed_compress(
     frames, flens = _split_blocks(arr, dev)
     crcs = crc32c.masked_crc32c_chunks(frames, flens)
     enc, totals = _encode_rows(frames, flens, level)
-    crcs = crcs.cpu().numpy()
-    enc = enc.cpu().numpy()
-    totals = totals.cpu().numpy()
-    flens = flens.cpu().numpy()
-    for k in range(len(flens)):
-        flen = int(flens[k])
-        crc_bytes = int(crcs[k]).to_bytes(4, "little")
-        # Keep the compressed form only if the encoded block alone (the
-        # varint header excluded, as the reference compares blockLen at
-        # encoder.nim:408) saves >= 1/8 of the frame, and the frame was big
-        # enough to try (encoder.nim:401-426).
-        if flen >= C.MIN_NON_LITERAL_BLOCK_SIZE and int(totals[k]) <= flen - flen // 8:
-            blob = varint.encode_uint32(flen) + enc[k, : totals[k]].tobytes()
-            parts.append(framing.encode_frame_header(C.CHUNK_COMPRESSED, 4 + len(blob)))
-            parts.append(crc_bytes)
-            parts.append(blob)
-        else:
-            parts.append(framing.encode_frame_header(C.CHUNK_UNCOMPRESSED, 4 + flen))
-            parts.append(crc_bytes)
-            parts.append(data[k * _BLOCK : k * _BLOCK + flen])
-    return b"".join(parts)
+    with telemetry.span("read.engine", reads=4):
+        crcs = crcs.cpu().numpy()
+        enc = enc.cpu().numpy()
+        totals = totals.cpu().numpy()
+        flens = flens.cpu().numpy()
+    with telemetry.span("engine.assemble"):
+        for k in range(len(flens)):
+            flen = int(flens[k])
+            crc_bytes = int(crcs[k]).to_bytes(4, "little")
+            # Keep the compressed form only if the encoded block alone (the
+            # varint header excluded, as the reference compares blockLen at
+            # encoder.nim:408) saves >= 1/8 of the frame, and the frame was
+            # big enough to try (encoder.nim:401-426).
+            if flen >= C.MIN_NON_LITERAL_BLOCK_SIZE and int(totals[k]) <= flen - flen // 8:
+                blob = varint.encode_uint32(flen) + enc[k, : totals[k]].tobytes()
+                parts.append(framing.encode_frame_header(C.CHUNK_COMPRESSED, 4 + len(blob)))
+                parts.append(crc_bytes)
+                parts.append(blob)
+            else:
+                parts.append(framing.encode_frame_header(C.CHUNK_UNCOMPRESSED, 4 + flen))
+                parts.append(crc_bytes)
+                parts.append(data[k * _BLOCK : k * _BLOCK + flen])
+        return b"".join(parts)
 
 
 def masked_crc32c(
@@ -425,18 +435,20 @@ def _decode_bodies(
     then (``check_integrity``) one K1 launch over the decoded rows.
     ``declared_h``: int32, one per body.  Returns (ok, out, masked CRCs or
     None, declared) on ``dev``."""
-    declared = torch.from_numpy(declared_h).to(dev)
     if _array_route():
+        declared = torch.from_numpy(declared_h).to(dev)
         ok, out = _decode_rows_array(arr, bodies, declared_h, dev)
     else:
-        offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
-        offsets[1:] = np.cumsum([hi - lo for lo, hi in bodies])
-        comp = np.concatenate([arr[lo:hi] for lo, hi in bodies] + [arr[:0]])
+        with telemetry.span("engine.stage"):
+            offsets = np.zeros(len(bodies) + 1, dtype=np.int64)
+            offsets[1:] = np.cumsum([hi - lo for lo, hi in bodies])
+            comp = np.concatenate([arr[lo:hi] for lo, hi in bodies] + [arr[:0]])
+        with telemetry.span("engine.upload"):
+            declared = torch.from_numpy(declared_h).to(dev)
+            comp_d, offsets_d = torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev)
         out = torch.empty((len(bodies), _BLOCK), dtype=torch.uint8, device=dev)
         ok, _written = decode_chunks.decode_chunks(
-            torch.from_numpy(comp).to(dev), torch.from_numpy(offsets).to(dev),
-            declared, out, host_values=(offsets, declared_h),
-        )
+            comp_d, offsets_d, declared, out, host_values=(offsets, declared_h))
     crcs = crc32c.masked_crc32c_chunks(out, declared) if check_integrity else None
     return ok, out, crcs, declared
 
@@ -466,12 +478,15 @@ def _decode_rows_array(
 def _crc_payloads(arr: np.ndarray, spans: List[Tuple[int, int]], dev: torch.device) -> torch.Tensor:
     """One K1 launch over the payloads ``arr[lo:hi]`` of ``spans`` (each at
     most 64 KiB), staged in zero-padded rows.  Returns uint32 on ``dev``."""
-    rows = torch.zeros((len(spans), _BLOCK), dtype=torch.uint8)
-    rows_h = rows.numpy()
-    for k, (lo, hi) in enumerate(spans):
-        rows_h[k, : hi - lo] = arr[lo:hi]
-    lens = torch.tensor([hi - lo for lo, hi in spans], dtype=torch.int32)
-    return crc32c.masked_crc32c_chunks(rows.to(dev), lens.to(dev))
+    with telemetry.span("engine.stage"):
+        rows = torch.zeros((len(spans), _BLOCK), dtype=torch.uint8)
+        rows_h = rows.numpy()
+        for k, (lo, hi) in enumerate(spans):
+            rows_h[k, : hi - lo] = arr[lo:hi]
+        lens = torch.tensor([hi - lo for lo, hi in spans], dtype=torch.int32)
+    with telemetry.span("engine.upload"):
+        rows, lens = rows.to(dev), lens.to(dev)
+    return crc32c.masked_crc32c_chunks(rows, lens)
 
 
 def _framed_uncompress_device(
@@ -486,84 +501,91 @@ def _framed_uncompress_device(
     CRC launch over the decoded rows; uncompressed chunks take one CRC
     launch.  Semantics parity: snappy.nim:199-265.  Returns (written, "ok")
     or (None, reason)."""
-    arr = np.frombuffer(data, dtype=np.uint8)
+    with telemetry.span("engine.decode"):
+        arr = np.frombuffer(data, dtype=np.uint8)
 
-    # Error ORDER parity: the reference processes chunks strictly one at a
-    # time (snappy.nim:199-265), so the error reported must belong to the
-    # EARLIEST bad chunk.  The walk below stops at the first failure it can
-    # see on the host; decode and CRC failures are found batched, so every
-    # candidate error carries its chunk INDEX and the smallest one wins.
-    deferred: Tuple[int, str] = (len(chunks), "")  # (chunk index, reason)
-    comp_jobs = []  # (chunk_idx, out_offset, body_lo, body_hi, declared, crc)
-    ucrc_jobs = []  # (chunk_idx, payload_lo, payload_hi, stored_crc)
-    pos = 0
-    for idx, ch in enumerate(chunks):
-        if ch.id in (C.CHUNK_COMPRESSED, C.CHUNK_UNCOMPRESSED):
-            if ch.data_len < 4:
-                deferred = (idx, "invalid")
-                break
-            stored = int.from_bytes(data[ch.data_pos : ch.data_pos + 4], "little")
-            lo, hi = ch.data_pos + 4, ch.data_pos + ch.data_len
-            if ch.id == C.CHUNK_COMPRESSED:
-                declared, read = varint.decode_uint32(arr[lo : min(hi, lo + 5)])
-                if declared is None or declared > C.MAX_UNCOMPRESSED_FRAME_DATA_LEN:
-                    deferred = (idx, "invalid")
+        # Error ORDER parity: the reference processes chunks strictly one at a
+        # time (snappy.nim:199-265), so the error reported must belong to the
+        # EARLIEST bad chunk.  The walk below stops at the first failure it can
+        # see on the host; decode and CRC failures are found batched, so every
+        # candidate error carries its chunk INDEX and the smallest one wins.
+        deferred: Tuple[int, str] = (len(chunks), "")  # (chunk index, reason)
+        comp_jobs = []  # (chunk_idx, out_offset, body_lo, body_hi, declared, crc)
+        ucrc_jobs = []  # (chunk_idx, payload_lo, payload_hi, stored_crc)
+        pos = 0
+        with telemetry.span("engine.stage"):  # the walk, and the stored chunks' payloads
+            for idx, ch in enumerate(chunks):
+                if ch.id in (C.CHUNK_COMPRESSED, C.CHUNK_UNCOMPRESSED):
+                    if ch.data_len < 4:
+                        deferred = (idx, "invalid")
+                        break
+                    stored = int.from_bytes(data[ch.data_pos : ch.data_pos + 4], "little")
+                    lo, hi = ch.data_pos + 4, ch.data_pos + ch.data_len
+                    if ch.id == C.CHUNK_COMPRESSED:
+                        declared, read = varint.decode_uint32(arr[lo : min(hi, lo + 5)])
+                        if declared is None or declared > C.MAX_UNCOMPRESSED_FRAME_DATA_LEN:
+                            deferred = (idx, "invalid")
+                            break
+                        comp_jobs.append((idx, pos, lo + read, hi, declared, stored))
+                        pos += declared
+                    else:
+                        if hi - lo > C.MAX_UNCOMPRESSED_FRAME_DATA_LEN:
+                            deferred = (idx, "invalid")
+                            break
+                        if check_integrity:
+                            ucrc_jobs.append((idx, lo, hi, stored))
+                        out_arr[pos : pos + hi - lo] = arr[lo:hi]
+                        pos += hi - lo
+                elif ch.id == C.CHUNK_STREAM_HEADER:
+                    pass
+                elif ch.id < C.CHUNK_RESERVED_SKIPPABLE_LO:
+                    deferred = (idx, "unknown_chunk")
                     break
-                comp_jobs.append((idx, pos, lo + read, hi, declared, stored))
-                pos += declared
-            else:
-                if hi - lo > C.MAX_UNCOMPRESSED_FRAME_DATA_LEN:
-                    deferred = (idx, "invalid")
-                    break
+                # reserved skippable: ignore payload
+
+        err = deferred
+
+        def consider(idx: int, reason: str):
+            nonlocal err
+            if idx < err[0]:
+                err = (idx, reason)
+
+        if comp_jobs:
+            ok, out, crcs, _ = _decode_bodies(
+                arr, [(lo, hi) for _, _, lo, hi, _, _ in comp_jobs],
+                np.array([j[4] for j in comp_jobs], dtype=np.int32), check_integrity, dev,
+            )
+            with telemetry.span("read.engine", reads=3 if check_integrity else 2):
+                ok = ok.cpu().numpy()
                 if check_integrity:
-                    ucrc_jobs.append((idx, lo, hi, stored))
-                out_arr[pos : pos + hi - lo] = arr[lo:hi]
-                pos += hi - lo
-        elif ch.id == C.CHUNK_STREAM_HEADER:
-            pass
-        elif ch.id < C.CHUNK_RESERVED_SKIPPABLE_LO:
-            deferred = (idx, "unknown_chunk")
-            break
-        # reserved skippable: ignore payload
+                    crcs = crcs.cpu().numpy()
+                out_h = out.cpu().numpy()
+            with telemetry.span("engine.assemble"):
+                for k, (idx, off, _, _, decl, stored) in enumerate(comp_jobs):
+                    if not ok[k]:
+                        consider(idx, "invalid")
+                        break
+                    if check_integrity and int(crcs[k]) != stored:
+                        consider(idx, "crc")
+                        break
+                    out_arr[off : off + decl] = out_h[k, :decl]
 
-    err = deferred
+        # Uncompressed-chunk CRCs in one launch.  Only chunks EARLIER than the
+        # current earliest error can still matter.
+        ucrc_jobs = [j for j in ucrc_jobs if j[0] < err[0]]
+        if ucrc_jobs:
+            got = _crc_payloads(arr, [(lo, hi) for _, lo, hi, _ in ucrc_jobs], dev)
+            with telemetry.span("read.engine", reads=1):
+                got = got.cpu().numpy()
+            with telemetry.span("engine.assemble"):
+                for k, (idx, _, _, stored) in enumerate(ucrc_jobs):
+                    if int(got[k]) != stored:
+                        consider(idx, "crc")
+                        break
 
-    def consider(idx: int, reason: str):
-        nonlocal err
-        if idx < err[0]:
-            err = (idx, reason)
-
-    if comp_jobs:
-        ok, out, crcs, _ = _decode_bodies(
-            arr, [(lo, hi) for _, _, lo, hi, _, _ in comp_jobs],
-            np.array([j[4] for j in comp_jobs], dtype=np.int32), check_integrity, dev,
-        )
-        ok = ok.cpu().numpy()
-        if check_integrity:
-            crcs = crcs.cpu().numpy()
-        out_h = out.cpu().numpy()
-        for k, (idx, off, _, _, decl, stored) in enumerate(comp_jobs):
-            if not ok[k]:
-                consider(idx, "invalid")
-                break
-            if check_integrity and int(crcs[k]) != stored:
-                consider(idx, "crc")
-                break
-            out_arr[off : off + decl] = out_h[k, :decl]
-
-    # Uncompressed-chunk CRCs in one launch.  Only chunks EARLIER than the
-    # current earliest error can still matter.
-    ucrc_jobs = [j for j in ucrc_jobs if j[0] < err[0]]
-    if ucrc_jobs:
-        got = _crc_payloads(arr, [(lo, hi) for _, lo, hi, _ in ucrc_jobs], dev).cpu().numpy()
-        for k, (idx, _, _, stored) in enumerate(ucrc_jobs):
-            if int(got[k]) != stored:
-                consider(idx, "crc")
-                break
-
-    if err[0] < len(chunks):
-        return None, err[1]
-    return pos, "ok"
+        if err[0] < len(chunks):
+            return None, err[1]
+        return pos, "ok"
 
 
 def framed_uncompress_chunks(
@@ -625,7 +647,8 @@ def framed_uncompress(
         if not framing.is_snappy_framed_stream(data):
             return None, "invalid"
         start = len(C.FRAMING_HEADER)
-    chunks = framing.scan_frames(data, start)
+    with telemetry.span("engine.scan"):
+        chunks = framing.scan_frames(data, start)
     if chunks is None:
         # Distinguish the unskippable-reserved case for error parity.
         return None, _scan_failure_reason(data, start)
@@ -638,7 +661,8 @@ def framed_uncompress(
     written, reason = _framed_uncompress_device(data, chunks, check_integrity, out_arr, dev)
     if written is None:
         return None, reason
-    return out_arr[:written].tobytes(), "ok"
+    with telemetry.span("engine.tobytes"):
+        return out_arr[:written].tobytes(), "ok"
 
 
 def _scan_failure_reason(data: bytes, start: int) -> str:

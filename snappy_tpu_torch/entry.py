@@ -51,7 +51,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from . import api, config, engine
+from . import api, config, engine, telemetry
 from .formats import constants as C
 from .formats import framing
 from .ops import crc32c
@@ -81,17 +81,19 @@ def step(frames_u8: torch.Tensor, flens: torch.Tensor):
     max_comp(B)], frame i's in ``enc[i, :totals[i]]``) and ``totals``
     (int32 [N]), on the frames' device: K1, then K3 or, off the ``scalar``
     route, the array encoder."""
-    b = frames_u8.shape[1]
-    if b > C.MAX_BLOCK_LEN:
-        raise ValueError(f"frames of {b} bytes: the step takes at most {C.MAX_BLOCK_LEN}")
-    width = max_comp(b)
-    crcs = crc32c.masked_crc32c_chunks(frames_u8, flens)
-    enc, totals = engine._encode_rows(frames_u8, flens, 1, width)
-    if enc.shape[1] >= width:  # K3's rows are ENC_CAP wide
-        enc = enc[:, :width]
-    else:
-        enc = F.pad(enc, (0, width - enc.shape[1]))
-    return crcs, enc, totals
+    with telemetry.span("entry.step"):
+        b = frames_u8.shape[1]
+        if b > C.MAX_BLOCK_LEN:
+            raise ValueError(f"frames of {b} bytes: the step takes at most {C.MAX_BLOCK_LEN}")
+        width = max_comp(b)
+        crcs = crc32c.masked_crc32c_chunks(frames_u8, flens)
+        enc, totals = engine._encode_rows(frames_u8, flens, 1, width)
+        with telemetry.span("entry.pad"):
+            if enc.shape[1] >= width:  # K3's rows are ENC_CAP wide
+                enc = enc[:, :width]
+            else:
+                enc = F.pad(enc, (0, width - enc.shape[1]))
+        return crcs, enc, totals
 
 
 def entry(device: config.DeviceLike = None):

@@ -23,12 +23,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import _build
 
 POLY = 0x82F63B78  # reflected CRC32C polynomial (crc32c_jax.py:31)
 MASK_DELTA = 0xA282EAD8  # snappy masking constant (crc32c_jax.py:32)
-
-LAUNCHES = 0  # kernel launches made by masked_crc32c_chunks
 
 TILE = 65536  # bytes of a tile (kTile of csrc/crc32c.cu)
 
@@ -110,7 +109,8 @@ def _check(chunks_u8: torch.Tensor, lengths: torch.Tensor) -> int:
         raise ValueError("lengths must be contiguous, on the chunks' device")
     if not len(lengths):
         return 0
-    lo, hi = (int(v) for v in torch.aminmax(lengths))
+    with telemetry.span("read.k1_lengths", reads=2):
+        lo, hi = (int(v) for v in torch.aminmax(lengths))
     if lo < 0 or hi > chunks_u8.shape[1]:
         raise ValueError("lengths must lie in [0, W]")
     return hi
@@ -123,16 +123,17 @@ def masked_crc32c_chunks(
 
     chunks_u8: uint8 [N, W]; lengths: int32 [N].  Returns uint32 [N] on the
     same device."""
-    max_len = _check(chunks_u8, lengths)
-    dev = chunks_u8.device
-    if dev.type == "cpu":
-        return _crc32c_plain(chunks_u8, lengths)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    out = torch.empty(len(lengths), dtype=torch.uint32, device=dev)
-    if len(lengths):
-        _launch(chunks_u8, lengths, out, tiles_per_row(max_len))
-    return out
+    with telemetry.span("k1"):
+        max_len = _check(chunks_u8, lengths)
+        dev = chunks_u8.device
+        if dev.type == "cpu":
+            return _crc32c_plain(chunks_u8, lengths)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = torch.empty(len(lengths), dtype=torch.uint32, device=dev)
+        if len(lengths):
+            _launch(chunks_u8, lengths, out, tiles_per_row(max_len))
+        return out
 
 
 def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
@@ -157,8 +158,7 @@ def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor,
         chunks_u8.data_ptr(), chunks_u8.stride(0), lengths.data_ptr(), len(lengths), nt_max,
         tabs.data_ptr(), adv.data_ptr(), tile_regs.data_ptr(), out.data_ptr(),
     )
-    global LAUNCHES
-    LAUNCHES += 1
+    telemetry.count("k1.launches")
 
 
 def _crc32c_plain(chunks_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -30,10 +30,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import _build
 from .crc32c import _gf2_apply, adv_tables, mask, shift_matrices, tables
-
-LAUNCHES = 0  # kernel launches made by masked_crc32c_chunks_fused
 
 CHUNK = 65536
 SUPER = 512  # super-lane of the TPU kernel: 512 bytes = 4096 bits
@@ -218,8 +217,7 @@ def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor) -
         chunks_u8.data_ptr(), lengths.data_ptr(), len(lengths), _consts[dev].data_ptr(),
         out.data_ptr(),
     )
-    global LAUNCHES
-    LAUNCHES += 1
+    telemetry.count("k6.launches")
 
 
 def registers_plain(chunks_u8: torch.Tensor) -> np.ndarray:

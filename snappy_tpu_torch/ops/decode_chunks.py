@@ -26,10 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import _build
-
-LAUNCHES = 0  # kernel launches made by decode_chunks at W <= 65536
-LAUNCHES_BIG = 0  # ... and at the big-window shape, W > 65536
 
 CHUNK = 65536  # the chunk shape: MAX_UNCOMPRESSED_FRAME_DATA_LEN
 MAX_OUT = 131072  # the big-window shape (decode_scalar.RAW_OUT_WORDS * 4)
@@ -84,21 +82,23 @@ def decode_chunks(
     tensors were uploaded from, for a caller that has them; their values
     are then checked there instead of copying the tensors back from the
     card.  Returns (ok bool [N], written int32 [N]) on out's device."""
-    _check(comp_u8, comp_offsets, declared, out)
-    if host_values is None:
-        host_values = (comp_offsets.cpu().numpy(), declared.cpu().numpy())
-    check_values(*host_values, comp_u8.shape[0], out.shape[1])
-    dev = out.device
-    if dev.type == "cpu":
-        return _decode_chunks_plain(comp_u8, comp_offsets, declared, out)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    n = declared.shape[0]
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
-    written = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        _launch(comp_u8, comp_offsets, declared, out, ok, written)
-    return ok, written
+    with telemetry.span("k2"):
+        _check(comp_u8, comp_offsets, declared, out)
+        if host_values is None:
+            with telemetry.span("read.k2_values", reads=2):
+                host_values = (comp_offsets.cpu().numpy(), declared.cpu().numpy())
+        check_values(*host_values, comp_u8.shape[0], out.shape[1])
+        dev = out.device
+        if dev.type == "cpu":
+            return _decode_chunks_plain(comp_u8, comp_offsets, declared, out)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        n = declared.shape[0]
+        ok = torch.empty(n, dtype=torch.bool, device=dev)
+        written = torch.empty(n, dtype=torch.int32, device=dev)
+        if n:
+            _launch(comp_u8, comp_offsets, declared, out, ok, written)
+        return ok, written
 
 
 def _launch(comp_u8, comp_offsets, declared, out, ok, written) -> None:
@@ -109,11 +109,7 @@ def _launch(comp_u8, comp_offsets, declared, out, ok, written) -> None:
         declared.shape[0], out.data_ptr(), out.shape[1], ok.data_ptr(),
         written.data_ptr(),
     )
-    global LAUNCHES, LAUNCHES_BIG
-    if out.shape[1] <= CHUNK:
-        LAUNCHES += 1
-    else:
-        LAUNCHES_BIG += 1
+    telemetry.count("k2.launches" if out.shape[1] <= CHUNK else "k2.launches_big")
 
 
 def decode_tags(body: bytes, m: int) -> Tuple[bool, int, int, bytes]:

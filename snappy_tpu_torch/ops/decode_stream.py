@@ -38,17 +38,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, telemetry
 from . import _build, decode_chunks, host_codec
 from .decode_chunks import decode_tags
-
-LAUNCHES = 0  # decode_stream calls on the card, either route
-LAUNCHES_WINDOWS = 0  # launches of the window route (pass 1 and pass 2)
-LAUNCHES_WALK = 0  # launches of the whole-stream walk
-LAUNCHES_SCAN = 0  # K5's pass-2 launches: one per decode_stream_scan call on the card
-LAUNCHES_SCAN_WINDOWS = 0  # K2 launches made as K5's pass 1, on the window route
-REDECODED = 0  # windows that pass 2 decoded, summed by decode_raw_stream_bytes
-WALKED = 0  # steps that K5's pass 2 ran through scan_step, summed by decode_raw_stream_bytes
 
 SC_BYTES = 76800  # scan mode's comp window (4 * SC_WORDS)
 WIN = 65536  # the output window of scan mode (4 * OW_WORDS) and of K4's window route
@@ -139,8 +131,7 @@ def decode_stream(
         _launch(comp_u8, declared, out, status)
     else:
         _launch_windows(comp_u8, declared, out, in_offs, status)
-    global LAUNCHES
-    LAUNCHES += 1
+    telemetry.count("k4.launches")  # a decode_stream call on the card, either route
     return status[:3]
 
 
@@ -150,8 +141,7 @@ def _launch(comp_u8, declared: int, out, status) -> None:
         "decode_stream", out.device,
         comp_u8.data_ptr(), comp_u8.shape[0], declared, out.data_ptr(), status.data_ptr(),
     )
-    global LAUNCHES_WALK
-    LAUNCHES_WALK += 1
+    telemetry.count("k4.launches_walk")
 
 
 def _launch_windows(comp_u8, declared: int, out, in_offs, status, rec=None, passes: int = 3) -> None:
@@ -166,8 +156,7 @@ def _launch_windows(comp_u8, declared: int, out, in_offs, status, rec=None, pass
         comp_u8.data_ptr(), comp_u8.shape[0], declared, in_offs.data_ptr(), nwin,
         out.data_ptr(), status.data_ptr(), rec.data_ptr(), passes,
     )
-    global LAUNCHES_WINDOWS
-    LAUNCHES_WINDOWS += 1
+    telemetry.count("k4.launches_windows")
 
 
 def _decode_stream_plain(comp_u8, declared: int, out) -> torch.Tensor:
@@ -279,8 +268,7 @@ def _launch_scan(comp_u8, declared: int, out, state, writtens, win=None, passes:
         if passes & 1:
             rows = out[: nwin * WIN].view(nwin, WIN)
             decode_chunks._launch(comp_u8, in_offs, decl, rows, ok, written)
-            global LAUNCHES_SCAN_WINDOWS
-            LAUNCHES_SCAN_WINDOWS += 1
+            telemetry.count("k5.launches_windows")
     if passes & 2:
         _build.launch(
             "decode_stream_scan", dev,
@@ -289,8 +277,7 @@ def _launch_scan(comp_u8, declared: int, out, state, writtens, win=None, passes:
             None if in_offs is None else in_offs.data_ptr(), nwin,
             None if ok is None else ok.data_ptr(), None if written is None else written.data_ptr(),
         )
-        global LAUNCHES_SCAN
-        LAUNCHES_SCAN += 1
+        telemetry.count("k5.launches")
 
 
 def scan_status(state, comp_len: int, declared: int) -> Tuple[int, int, int, int, int]:
@@ -439,8 +426,7 @@ def decode_raw_stream_bytes(
         status = torch.empty(4, dtype=torch.int64, device=dev)
         decode_stream(comp, declared, out, offs_d, status)
         ok, _, _, redecoded = status.tolist()
-        global REDECODED
-        REDECODED += redecoded
+        telemetry.count("k4.redecoded", redecoded)
         if not ok:
             return None, "invalid"
     else:
@@ -450,8 +436,7 @@ def decode_raw_stream_bytes(
         decode_stream_scan(comp, declared, out, offs_d, state,
                            None if in_offs is None else in_offs.numpy())
         st = state.tolist()
-        global WALKED
-        WALKED += st[S_WALKED]
+        telemetry.count("k5.walked", st[S_WALKED])
         ok, _, unsup, _, _ = scan_status(st, len(body), declared)
         if not ok:
             return None, "unsupported" if unsup else "invalid"

@@ -20,11 +20,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..formats import constants as C
 from . import _build
-
-LAUNCHES = 0  # kernel launches made by encode_blocks at level 1 (ways=1)
-LAUNCHES_L2 = 0  # ... and at level >= 2 (ways=2)
 
 BLOCK = C.MAX_BLOCK_LEN
 # Output capacity per block: the format's worst case plus 16 bytes of slack
@@ -44,9 +42,11 @@ def _check(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
         raise TypeError("lens must be an int32 tensor [N]")
     if lens.device != blocks_u8.device or not lens.is_contiguous():
         raise ValueError("lens must be contiguous, on the blocks' device")
-    if len(lens) and (
-        int(lens.min()) < 0 or int(lens.max()) > min(BLOCK, blocks_u8.shape[1])
-    ):
+    if not len(lens):
+        return
+    with telemetry.span("read.k3_lengths", reads=2):
+        lo, hi = int(lens.min()), int(lens.max())
+    if lo < 0 or hi > min(BLOCK, blocks_u8.shape[1]):
         raise ValueError("lens must lie in [0, min(W, 65536)]")
 
 
@@ -58,19 +58,20 @@ def encode_blocks(
 
     blocks_u8: uint8 [N, W]; lens: int32 [N], each <= 65536.  Returns
     (enc uint8 [N, ENC_CAP], enc_len int32 [N]) on the same device."""
-    _check(blocks_u8, lens)
-    ways = 2 if level >= 2 else 1
-    dev = blocks_u8.device
-    if dev.type == "cpu":
-        return _encode_blocks_plain(blocks_u8, lens, ways)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    n = len(lens)
-    enc = torch.empty((n, ENC_CAP), dtype=torch.uint8, device=dev)
-    enc_len = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        _launch(blocks_u8, lens, enc, enc_len, ways)
-    return enc, enc_len
+    with telemetry.span("k3"):
+        _check(blocks_u8, lens)
+        ways = 2 if level >= 2 else 1
+        dev = blocks_u8.device
+        if dev.type == "cpu":
+            return _encode_blocks_plain(blocks_u8, lens, ways)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        n = len(lens)
+        enc = torch.empty((n, ENC_CAP), dtype=torch.uint8, device=dev)
+        enc_len = torch.empty(n, dtype=torch.int32, device=dev)
+        if n:
+            _launch(blocks_u8, lens, enc, enc_len, ways)
+        return enc, enc_len
 
 
 def _launch(blocks_u8, lens, enc, enc_len, ways: int = 1) -> None:
@@ -80,11 +81,7 @@ def _launch(blocks_u8, lens, enc, enc_len, ways: int = 1) -> None:
         blocks_u8.data_ptr(), blocks_u8.stride(0), lens.data_ptr(), len(lens),
         enc.data_ptr(), enc.shape[1], enc_len.data_ptr(), ways,
     )
-    global LAUNCHES, LAUNCHES_L2
-    if ways == 1:
-        LAUNCHES += 1
-    else:
-        LAUNCHES_L2 += 1
+    telemetry.count("k3.launches" if ways == 1 else "k3.launches_l2")
 
 
 def _literal(out: bytearray, lit: bytes) -> None:

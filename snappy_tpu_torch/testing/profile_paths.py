@@ -4,9 +4,12 @@ stage.
     python snappy_tpu_torch/testing/profile_paths.py [--tree DIR] [--reps N]
 
 On the seeded 48 MiB payload's level-1 framed stream: ``decode_framed``
-end to end (best and median of ``reps`` after a warm-up), its host stages
-(the frame scan, the device decode into the output array, ``tobytes``)
-and the device time of one call by ``torch.profiler``.  Then the raw
+end to end (best and median of ``reps`` after a warm-up), its stages (the
+frame scan, the device decode into the output array, ``tobytes``) and the
+engine's spans inside them, then ``encode_framed``'s spans, all read from
+the port's span store (``telemetry.recording()``, one call a rep), what
+an empty span costs the host off and on, and the device time of one call
+by ``torch.profiler``.  Then the raw
 paths: ``decode`` of the payload's level-1 raw stream end to end, its
 stages where the package has K4's window route (the host window index,
 H2D, the kernels, D2H, ``tobytes``) and its device time, ``decode_batch``
@@ -40,16 +43,13 @@ def main() -> None:
     args = p.parse_args()
     if args.tree:
         sys.path.insert(0, args.tree)
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda is not available")
     import snappy_tpu_torch
-    from snappy_tpu_torch import api, engine
+    from snappy_tpu_torch import api
     from snappy_tpu_torch.ops import decode_stream
-    from snappy_tpu_torch.formats import constants as C
-    from snappy_tpu_torch.formats import framing
     from snappy_tpu_torch.testing import payloads
 
     card = subprocess.run(
@@ -77,23 +77,7 @@ def main() -> None:
     best, med = timed(lambda: api.decode_framed(stream, device=dev))
     print(f"decode_framed: best {best:.2f} ms, median {med:.2f} ms {tag}")
 
-    start = len(C.FRAMING_HEADER)
-    stages = {"scan": [], "device decode": [], "tobytes": []}
-    for _ in range(args.reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chunks = framing.scan_frames(stream, start)
-        t1 = time.perf_counter()
-        out_arr = np.empty(sum(c.uncompressed_len for c in chunks), dtype=np.uint8)
-        written, _ = engine._framed_uncompress_device(stream, chunks, True, out_arr, dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        out_arr[:written].tobytes()
-        t3 = time.perf_counter()
-        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
-            stages[k].append(v * 1e3)
-    print("decode_framed stages (median ms): " + ", ".join(
-        f"{k} {statistics.median(v):.2f}" for k, v in stages.items()) + f" {tag}")
+    span_stages(api, payload, stream, dev, args.reps, tag)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,6 +120,66 @@ def main() -> None:
     for line in text.getvalue().splitlines():
         if line.strip() and ("{" in line or ".py" in line):
             print("  " + line.strip())
+
+
+STAGES = (("scan", "engine.scan"), ("device decode", "engine.decode"), ("tobytes", "engine.tobytes"))
+
+
+def span_stages(api, payload: bytes, stream: bytes, dev, reps: int, tag: str) -> None:
+    """``decode_framed``'s stages and ``decode_framed``'s and
+    ``encode_framed``'s spans, median ms over ``reps`` calls: each span's
+    total and self time, its calls and the reads it declares."""
+    import torch
+
+    try:
+        from snappy_tpu_torch import telemetry
+    except ImportError:
+        print(f"decode_framed stages: this tree records no spans {tag}")
+        return
+    for name, fn in (("decode_framed", lambda: api.decode_framed(stream, device=dev)),
+                     ("encode_framed", lambda: api.encode_framed(payload, device=dev))):
+        fn()
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            telemetry.reset()
+            with telemetry.recording() as store:
+                fn()
+            runs.append({k: (s.total_s * 1e3, s.self_s * 1e3, s.count, s.reads) for k, s in store.items()})
+        telemetry.reset()
+        med = {k: [statistics.median(r[k][i] for r in runs) for i in range(4)] for k in runs[0]}
+        if name == "decode_framed":
+            print("decode_framed stages (median ms): " + ", ".join(
+                f"{label} {med[span][0]:.2f}" for label, span in STAGES) + f" {tag}")
+        print(f"{name} spans (median ms total / self, calls, reads): " + ", ".join(
+            f"{k} {t:.3f} / {s:.3f}, {c:g}, {r:g}" for k, (t, s, c, r) in med.items()) + f" {tag}")
+    span_cost(telemetry, tag)
+
+
+def span_cost(telemetry, tag: str) -> None:
+    """Host us an empty span costs: off, inside ``recording()`` and under
+    ``torch.profiler`` (CPU activity), best of 5 loops each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def per_span(n):
+        span = telemetry.span
+        best = float("inf")
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(n):
+                with span("cost"):
+                    pass
+            best = min(best, (time.perf_counter() - t) / n * 1e6)
+        return best
+
+    off = per_span(200_000)
+    with telemetry.recording():
+        recording = per_span(50_000)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = per_span(10_000)
+    telemetry.reset()
+    print(f"span cost (us a span): off {off:.3f}, recording {recording:.3f}, "
+          f"under torch.profiler {profiled:.3f} {tag}")
 
 
 def raw_paths(api, decode_stream, payload, payloads, dev, timed, device_time, tag) -> None:

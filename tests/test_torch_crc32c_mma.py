@@ -36,6 +36,7 @@ from hypothesis import strategies as st  # noqa: E402
 
 from snappy_tpu.ops import crc32c_jax, crc32c_mxu  # noqa: E402
 
+from snappy_tpu_torch import telemetry  # noqa: E402
 from snappy_tpu_torch.ops import _build, crc32c, crc32c_mma  # noqa: E402
 from snappy_tpu_torch.testing import mma_layouts  # noqa: E402
 from snappy_tpu_torch.testing.payloads import Rand  # noqa: E402
@@ -140,9 +141,9 @@ def test_wrapper_checks():
         torch.zeros((0, P), dtype=torch.uint8), torch.zeros(0, dtype=torch.int32)
     )
     assert empty.shape == (0,)
-    before = crc32c_mma.LAUNCHES
+    before = telemetry.counter("k6.launches")
     crc32c_mma.masked_crc32c_chunks_fused(t, lt)
-    assert crc32c_mma.LAUNCHES == before
+    assert telemetry.counter("k6.launches") == before
 
 
 LANE = np.arange(32)

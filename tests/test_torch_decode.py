@@ -22,6 +22,7 @@ from snappy_tpu import engine  # noqa: E402
 from snappy_tpu.formats import varint  # noqa: E402
 from snappy_tpu.ops import decode_scalar, host_codec  # noqa: E402
 
+from snappy_tpu_torch import telemetry  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_chunks  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 
@@ -239,9 +240,10 @@ def test_big_window_plain_matches_tpu_kernel_interpreted():
 def test_big_window_counts_its_own_launches():
     """The wrapper counts launches at W <= 65536 and W > 65536 apart (a CPU
     tensor runs the plain version and counts nothing)."""
-    before = (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG)
+    names = ("k2.launches", "k2.launches_big")
+    before = [telemetry.counter(n) for n in names]
     run_plain_big(payloads.big_window_cases()[:1])
-    assert (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG) == before
+    assert [telemetry.counter(n) for n in names] == before
 
 
 @pytest.fixture(scope="module")

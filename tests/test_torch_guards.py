@@ -18,7 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from snappy_tpu_torch.ops import _build, crc32c, decode_chunks, decode_stream  # noqa: E402
+from snappy_tpu_torch import telemetry  # noqa: E402
+from snappy_tpu_torch.ops import _build, crc32c, decode_chunks  # noqa: E402
 from snappy_tpu_torch.testing import guards, payloads  # noqa: E402
 
 if shutil.which("g++") is None:
@@ -76,14 +77,13 @@ def test_every_kernel_holds_its_guards(to_twin):
 
 def test_guarded_launches_go_through_the_counted_wrappers(to_twin):
     g = guards.Guard("cpu")
-    before = (decode_chunks.LAUNCHES, decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK,
-              decode_stream.LAUNCHES_SCAN, crc32c.LAUNCHES)
+    counters = ("k2.launches", "k4.launches_windows", "k4.launches_walk", "k5.launches", "k1.launches")
+    before = [telemetry.counter(c) for c in counters]
     body, m, _ = payloads.window_cases()[3]
     g.stream_routes(body, m, "deferred")
     rows, lens = blocks()
     g.crc32c(rows.reshape(-1), 0, 65536, len(lens), 65536, lens, "blocks")
-    after = (decode_chunks.LAUNCHES, decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK,
-             decode_stream.LAUNCHES_SCAN, crc32c.LAUNCHES)
+    after = [telemetry.counter(c) for c in counters]
     fills = len(guards.FILLS)
     assert tuple(a - b for a, b in zip(after, before)) == (fills, fills, fills, 2 * fills, fills)
     assert dict(g.guarded) == {"decode_stream": 2 * fills, "decode_stream_scan": 2 * fills,

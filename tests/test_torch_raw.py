@@ -20,10 +20,10 @@ from snappy_tpu import engine as jax_engine  # noqa: E402
 from snappy_tpu.testing import corpus  # noqa: E402
 
 import snappy_tpu_torch as port  # noqa: E402
-from snappy_tpu_torch import engine  # noqa: E402
+from snappy_tpu_torch import engine, telemetry  # noqa: E402
 from snappy_tpu_torch.formats import varint  # noqa: E402
 from snappy_tpu_torch.formats.errors import CodecError, InputTooLarge  # noqa: E402
-from snappy_tpu_torch.ops import decode_chunks, decode_stream, host_codec  # noqa: E402
+from snappy_tpu_torch.ops import host_codec  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 from snappy_tpu_torch.testing.payloads import body_of, copy2, literal  # noqa: E402
 
@@ -132,9 +132,10 @@ def test_decode_batch_routes_and_counts():
     so no launch is counted, and the results equal the JAX package's."""
     enc = lambda ps: [host_raw(x) for x in ps]  # noqa: E731
     streams, expect = payloads.serving_batch(enc, n_small=6, big=300_000)
-    before = (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG, decode_stream.LAUNCHES)
+    counters = ("k2.launches", "k2.launches_big", "k4.launches")
+    before = [telemetry.counter(c) for c in counters]
     got = engine.raw_uncompress_batch(streams, device="cpu")
-    assert before == (decode_chunks.LAUNCHES, decode_chunks.LAUNCHES_BIG, decode_stream.LAUNCHES)
+    assert before == [telemetry.counter(c) for c in counters]
     assert got == [jax_engine.raw_uncompress(s, backend="host") for s in streams]
     assert [g for g, _ in got] == expect
     assert [r for _, r in got].count("invalid") == 4

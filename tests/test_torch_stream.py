@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from snappy_tpu.ops import decode_stream as jax_stream  # noqa: E402
 
+from snappy_tpu_torch import telemetry  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_stream  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 from snappy_tpu_torch.testing.payloads import copy2, literal  # noqa: E402
@@ -67,9 +68,9 @@ def test_wrapper_rejects_bad_inputs():
 
 
 def test_counts_no_launch_on_the_cpu():
-    before = decode_stream.LAUNCHES
+    before = telemetry.counter("k4.launches")
     run_plain(CASES[0][0], CASES[0][1])
-    assert decode_stream.LAUNCHES == before
+    assert telemetry.counter("k4.launches") == before
 
 
 @pytest.fixture(scope="module")

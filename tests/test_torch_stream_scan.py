@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 from snappy_tpu.ops import decode_stream as jax_stream  # noqa: E402
 
-from snappy_tpu_torch import api, engine  # noqa: E402
+from snappy_tpu_torch import api, engine, telemetry  # noqa: E402
 from snappy_tpu_torch.formats import varint  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_stream  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
@@ -169,9 +169,9 @@ def test_engine_route(monkeypatch, spies, mode, k, route, reason):
 
 
 def test_counts_no_launch_on_the_cpu():
-    before = decode_stream.LAUNCHES_SCAN
+    before = telemetry.counter("k5.launches")
     run_plain(*CASES[0][:2])
-    assert decode_stream.LAUNCHES_SCAN == before
+    assert telemetry.counter("k5.launches") == before
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -24,7 +24,8 @@ torch = pytest.importorskip("torch")
 
 from snappy_tpu.ops import decode_stream as jax_stream  # noqa: E402
 
-from snappy_tpu_torch.ops import _build, decode_chunks, decode_stream  # noqa: E402
+from snappy_tpu_torch import telemetry  # noqa: E402
+from snappy_tpu_torch.ops import _build, decode_stream  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 
 WIN = decode_stream.WIN
@@ -283,12 +284,12 @@ def test_wrapper_takes_in_offs_and_checks_it():
 @pytest.mark.parametrize("k", [RAGGED, RESYNC, SERVED, FAR, BAD, CHAIN, MARGIN, LONG, ZERO, W_DEFERRED])
 def test_decode_raw_stream_bytes_on_the_cpu(k):
     body, m, payload = CASES[k]
-    counters = ("LAUNCHES_SCAN", "LAUNCHES_SCAN_WINDOWS", "WALKED")
-    before = [getattr(decode_stream, c) for c in counters] + [decode_chunks.LAUNCHES]
+    counters = ("k5.launches", "k5.launches_windows", "k5.walked", "k2.launches")
+    before = [telemetry.counter(c) for c in counters]
     got = decode_stream.decode_raw_stream_bytes(body, m, mode="scan", device="cpu")
     state = run_plain(body, m)[0]
     ok, _, unsup, _, _ = decode_stream.scan_status(state, len(body), m)
     want = (payload if m else b"", "ok") if ok else (None, "unsupported" if unsup else "invalid")
     assert got == want
-    after = [getattr(decode_stream, c) for c in counters] + [decode_chunks.LAUNCHES]
+    after = [telemetry.counter(c) for c in counters]
     assert after == before  # nothing launched or walked on the CPU

@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from snappy_tpu.ops import decode_stream as jax_stream  # noqa: E402
 
+from snappy_tpu_torch import telemetry  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_stream  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 
@@ -214,13 +215,12 @@ def test_window_index_finds_the_route():
 @pytest.mark.parametrize("k", [*BLOCK, DEFERRED, CHAIN, MUTANTS[0], STRADDLE])
 def test_decode_raw_stream_bytes_on_the_cpu(k):
     body, m, payload = WINDOW_CASES[k]
-    before = (decode_stream.LAUNCHES, decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK,
-              decode_stream.REDECODED)
+    counters = ("k4.launches", "k4.launches_windows", "k4.launches_walk", "k4.redecoded")
+    before = [telemetry.counter(c) for c in counters]
     got, reason = decode_stream.decode_raw_stream_bytes(body, m, mode="grid", device="cpu")
     if payload is None:
         assert (got, reason) == (None, "invalid")
     else:
         assert (got, reason) == (payload, "ok")
-    after = (decode_stream.LAUNCHES, decode_stream.LAUNCHES_WINDOWS, decode_stream.LAUNCHES_WALK,
-             decode_stream.REDECODED)
+    after = [telemetry.counter(c) for c in counters]
     assert after == before  # nothing launched, nothing decoded twice on the CPU
