@@ -48,6 +48,15 @@ Phases, each reported on its own lines:
               batch-logic cases, then blocks of every payload kind and the
               adversarial kinds at random lengths, 1,200 in all) equal the
               host C encoder's (host_codec.encode_block), or it fails;
+              then K3's persistent grid at both levels: the first 1, 7,
+              8, 924 and 925 of those blocks (the edges of 7 walkers an
+              SM on 132 SMs), a ragged batch of 932 rows of 65,536, 856,
+              16 and 0 bytes, and two launches back to back on one stream
+              without a synchronise (the second finds its row queue
+              zeroed) equal the host C encoder, k3.walkers rises by
+              encode_blocks.launch_shape's walkers a launch and
+              k3.ordered by one where the rows outnumber the walkers (the
+              costliest walked first), or it fails;
               then the decoder differential: 600 seeded raw streams of
               30 B to 200 KB, 60% of them mutated (bit flips, truncations,
               insertions, duplications; payloads.mutation_streams), through
@@ -298,6 +307,8 @@ KERNELS = {
 CRC_DIFFERENTIAL = 32  # rows per start offset held against the host C CRC
 MMA_SWEEP = (1, 7, 131, 132, 133, 264, 769, 2048)  # K6's batches held against the host C CRC
 MMA_EDGES = [0, 1, 31, 32, 33, 511, 512, 4095, 4096, 65535, 65536]
+K3_SLICES = (1, 7, 8, 924, 925)  # K3's batches across its walker and grid edges (7 walkers an SM, 132 SMs)
+K3_RAGGED = (65536, 856, 16, 0) * 233  # the rows of K3's ragged batch
 ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
 DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
 K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
@@ -922,17 +933,61 @@ def main() -> None:
           f"the edge lengths {MMA_EDGES} (tolerance: exact)")
     diff_blocks = payloads.encoder_blocks(ENCODER_DIFFERENTIAL)
     d_rows, d_lens = block_batch(diff_blocks, dev)
+    diff_want = {}  # level -> the host C encoder's bytes of each block
     for level in (1, 2):
         enc, elen = encode_blocks.encode_blocks(d_rows, d_lens, level)
         enc, elen = enc.cpu().numpy(), elen.cpu().tolist()
-        for k, b in enumerate(diff_blocks):
-            want_b = host_codec.encode_block(b, level)
+        diff_want[level] = [host_codec.encode_block(b, level) for b in diff_blocks]
+        for k, (b, want_b) in enumerate(zip(diff_blocks, diff_want[level])):
             assert enc[k, : elen[k]].tobytes() == want_b, \
                 ("encoder differential", level, k, len(b), elen[k], len(want_b))
-    del d_rows, d_lens
     print(f"kernels: encoder differential: encode_blocks at levels 1 and 2 equals the host C "
           f"encoder on {len(diff_blocks)} blocks of {sum(map(len, diff_blocks))} bytes "
           f"(tolerance: exact)")
+    # K3's persistent grid: leading slices of the differential's blocks
+    # across its walker and grid edges, a ragged batch, and two launches
+    # back to back on one stream (the second finds its queue zeroed)
+    rag_pool = payloads.mixed_payload(len(K3_RAGGED) * 65536, seed=71)
+    rag_blocks = [rag_pool[k * 65536 : k * 65536 + m] for k, m in enumerate(K3_RAGGED)]
+    r_rows, r_lens = block_batch(rag_blocks, dev)
+    limits = encode_blocks.card_limits(dev)
+    k3_walkers = {}  # (level, batch) -> walkers a launch
+    for level in (1, 2):
+        ways = 2 if level >= 2 else 1
+        rag_want = [host_codec.encode_block(b, level) for b in rag_blocks]
+        batches = [(f"n={n_sl}", d_rows[:n_sl], d_lens[:n_sl], diff_want[level][:n_sl]) for n_sl in K3_SLICES]
+        batches.append((f"ragged n={len(rag_blocks)}", r_rows, r_lens, rag_want))
+        for name, rows_b, lens_b, want in batches:
+            before = [telemetry.counter(c) for c in ("k3.walkers", "k3.ordered")]
+            enc, elen = encode_blocks.encode_blocks(rows_b, lens_b, level)
+            walkers, ordered = (telemetry.counter(c) - b for c, b in zip(("k3.walkers", "k3.ordered"), before))
+            k3_walkers[level, name] = walkers
+            assert walkers == encode_blocks.launch_shape(len(want), ways, *limits)[0], \
+                ("K3 walkers", level, name, walkers, limits)
+            assert ordered == (len(want) > walkers), ("K3 order", level, name, ordered, walkers)
+            enc, elen = enc.cpu().numpy(), elen.cpu().tolist()
+            bad = [k for k, w in enumerate(want) if enc[k, : elen[k]].tobytes() != w]
+            assert not bad, ("K3 persistent grid", level, name, bad[:8])
+        pair = ((d_rows, d_lens, diff_want[level]), (r_rows, r_lens, rag_want))
+        outs = [(torch.empty((len(w), encode_blocks.ENC_CAP), dtype=torch.uint8, device=dev),
+                 torch.full((len(w),), -1, dtype=torch.int32, device=dev)) for _, _, w in pair]
+        for (rows_b, lens_b, _), (enc, elen) in zip(pair, outs):
+            encode_blocks._launch(rows_b, lens_b, enc, elen, ways)  # no synchronise between them
+        torch.cuda.synchronize(dev)
+        for (_, _, want), (enc, elen) in zip(pair, outs):
+            enc, elen = enc.cpu().numpy(), elen.cpu().tolist()
+            bad = [k for k, w in enumerate(want) if enc[k, : elen[k]].tobytes() != w]
+            assert not bad, ("K3 back to back", level, len(want), bad[:8])
+        del outs
+    del d_rows, d_lens, r_rows, r_lens
+    print(f"kernels: K3's persistent grid equals the host C encoder at levels 1 and 2 on the "
+          f"differential's first {', '.join(map(str, K3_SLICES))} blocks, a ragged batch of "
+          f"{len(rag_blocks)} rows of 65,536, 856, 16 and 0 bytes, and two launches back to back "
+          f"without a synchronise ({len(diff_blocks)} blocks, then the ragged batch), the rows "
+          f"costliest first where they outnumber the walkers; walkers a "
+          f"launch (card: {limits[0]:,} bytes of opt-in shared memory a CTA, {limits[1]} SMs): "
+          + "; ".join(f"level {lv} " + ", ".join(f"{nm} {w}" for (lk, nm), w in k3_walkers.items() if lk == lv)
+                      for lv in (1, 2)) + " (tolerance: exact)")
 
     mutated = payloads.mutation_streams(DECODER_DIFFERENTIAL)
     m_streams = [m for m, _ in mutated]

@@ -17,14 +17,13 @@
 // inserts ip - 1 the same way before it probes ip
 // (snappy_codec.c:171-178, 209-219).
 //
-// Bound on the H100: latency.  A greedy walk is a chain of dependent
-// loads (probe, table, candidate, compare) over ~5,200 tags per 64 KiB
-// block of the mixed payload; the bytes moved (50 + 22 MB at 768 blocks)
-// take 0.02 ms.  The earlier design walked each block with one thread of
-// a 128-thread CTA, one byte per step.  In this one a copy still waits for
-// its candidate, known only after the table read, and then for the
-// candidate's bytes from L2; the kernel waits for its slowest blocks
-// (text-like ones, about twice the mean walk).
+// Bound on the H100: latency, and so the walks in flight.  A greedy walk
+// is a chain of dependent loads (probe, table, candidate, compare) over
+// ~5,200 tags per 64 KiB block of the mixed payload, about 1,400 cycles a
+// tag; the bytes moved (50 + 22 MB at 768 blocks) take 0.02 ms.  So one
+// walk's speed is set by latency, and the card's rate by the number of
+// walks in flight.  The earlier design walked each block with one thread
+// of a 128-thread CTA, one byte per step.
 //
 // Design: one warp walks one block, and all 32 lanes take part in every
 // step while the decisions stay in the host C's order:
@@ -46,16 +45,34 @@
 // - the step after a match (insert ip - 1, probe ip) and the copy tags are
 //   warp-uniform: every lane computes them and stores the same bytes.  The
 //   probe's compare is the head of its match extension.
-// Layout, fixed from the A/B on the card (PERF.md §6): a CTA is one warp
-// (one block per CTA keeps each table's shared memory apart and lets the
-// scheduler place blocks one by one), and only its hash table sits in
-// shared memory (32 KiB at ways=1, 64 KiB at ways=2), so 6 (3) CTAs share
-// an SM and all 768 blocks of the main path are in flight at once (two
-// waves at ways=2); the warp reads its block from global memory through
-// the read-only path.  Staging the block beside the table as well (layout
-// a, which testing/encode_layouts.py builds around the same walk) makes
-// each load cheaper but leaves 2 (1) CTAs per SM, and measured slower at
-// both ways.
+//
+// Launch: a persistent grid of walkers, each a warp with its own hash
+// table (32 KiB at ways=1, 64 KiB at ways=2) in its CTA's shared memory,
+// reading its block from global memory through the read-only path.
+// - Shared memory, not registers (38-40 a thread) or warp slots, caps the
+//   walks in flight: one table per one-warp CTA plus the SM's 1 KB
+//   reservation a CTA let only 6 (3) CTAs share an SM.  One CTA an SM of
+//   as many walkers as the card's opt-in shared memory per block holds
+//   pays that reservation once: 7 walkers at ways=1 (229,376 of 232,448
+//   bytes on the H100), 3 at ways=2.  ops/encode_blocks.launch_shape sets
+//   the walkers and CTAs; a batch of fewer blocks gets no more walkers than
+//   blocks, spread over as many SMs as it has blocks.
+// - Walks differ up to 3x in tags (a beacon state's balances against its
+//   validator records), so no walker is dealt a fixed share of the rows:
+//   lane 0 of a walker that is free takes the next entry from a counter on
+//   the card (zeroed on the stream before each launch) and the warp walks
+//   its row, until none is left.  Rows keep their places in the output.
+// - Where rows outnumber walkers, the walks that start last set the end:
+//   on a beacon state the 244 balance and participation frames, 2.1x a
+//   validator frame's walk, come last in index order and leave most
+//   walkers idle behind them (PERF.md §6).  So the queue takes the rows
+//   costliest first: a first launch times walks at ways=1 of four 256-byte
+//   pieces of each row (the same walk on a sample of the row), and
+//   ops/encode_blocks orders the queue by those times before the walk.
+// - Staging the block beside the table (layout a, which
+//   testing/encode_layouts.py builds around the same walk, PERF.md §6)
+//   makes each load cheaper but leaves 2 (1) walks an SM, and measured
+//   slower at both ways.
 //
 // One source, two builds: the warp code is written against Lanes<T> and
 // the collectives of snappy_common.cuh, which are registers and
@@ -375,62 +392,155 @@ STPU_HD uint32_t encode_block_warp(const S& src, uint8_t* out, uint16_t* table) 
 namespace {
 
 template <int Ways>
-constexpr size_t enc_smem() {
+__host__ __device__ constexpr size_t table_bytes() {
   return Ways * stpu::kTableSize * sizeof(uint16_t);
 }
 
-template <int Ways>
-__global__ void __launch_bounds__(32)
-    encode_blocks_kernel(const uint8_t* __restrict__ blocks, int64_t in_stride,
-                         const int32_t* __restrict__ lens,
-                         uint8_t* __restrict__ out, int64_t out_stride,
-                         int32_t* __restrict__ out_len) {
+// Bytes of a row, in kPieces pieces at the starts of its quarters, whose
+// walks estimate the cost of its whole walk, for the order of the queue.
+constexpr uint32_t kSample = 1024;
+constexpr uint32_t kPieces = 4;
+
+// The kernel's passes: the walk of the rows in index order or in a given
+// order, at either `ways`, and the estimate of their costs, at ways=1 for
+// both levels (the pieces' walks at ways=1 rank the rows as well, and
+// ptxas fails (C7600) to allocate the estimate at ways=2).
+enum Pass : int { kIndexOrder, kOrdered, kEstimate };
+
+// `walkers` warps over gridDim.x CTAs: warp w of CTA c is walker w *
+// gridDim.x + c, and the warps past the last walker return at once.  Each
+// walker owns its slice of the CTA's shared memory as its hash table and,
+// once free, takes the next entry of `queue` until none is left.  In the
+// walk passes entry k is row order[k] (kOrdered) or row k, walked into
+// out[row] and out_len[row].  kEstimate has kPieces entries a row: entry
+// k walks piece k % kPieces of row k / kPieces, sample / kPieces bytes at
+// the start of that quarter of the row (so that a row whose fields change
+// inside it is seen whole), and adds its cycles, scaled to the row's
+// length over `sample`, to cost[row], zeroed before the launch; a row of
+// `sample` bytes or fewer keeps 0.  The pieces' bytes land in the row's
+// output, for the walk to overwrite.  (`sample` is kSample, passed at run
+// time so that the estimate's walk is not compiled for one block size;
+// the pieces are entries of their own because ptxas fails (C7600) to
+// allocate a loop of walks inside the loop of entries.)
+template <int Ways, int P>
+__global__ void encode_blocks_kernel(const uint8_t* __restrict__ blocks, int64_t in_stride,
+                                     const int32_t* __restrict__ lens, int n,
+                                     uint8_t* __restrict__ out, int64_t out_stride,
+                                     int32_t* __restrict__ out_len, int walkers,
+                                     uint32_t* __restrict__ queue, int32_t* __restrict__ cost,
+                                     const int32_t* __restrict__ order, uint32_t sample) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const uint32_t lane = threadIdx.x;
-  const int64_t row = blockIdx.x;
-  const uint32_t n = (uint32_t)lens[row];
-  uint16_t* table = reinterpret_cast<uint16_t*>(smem);
-  uint4* tab16 = reinterpret_cast<uint4*>(smem);
-  const uint32_t tab_chunks = Ways * stpu::table_entries(n) * sizeof(uint16_t) / 16;
-  for (uint32_t k = lane; k < tab_chunks; k += 32) tab16[k] = make_uint4(0, 0, 0, 0);
-  __syncwarp();
-  const stpu::Block block = {blocks + row * in_stride, n};
-  STPU_PROF(7, const uint32_t len =
-                   stpu::encode_block_warp<Ways>(block, out + row * out_stride, table));
-  if (lane == 0) out_len[row] = (int32_t)len;
+  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp * gridDim.x + blockIdx.x >= (uint32_t)walkers) return;
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem + warp * table_bytes<Ways>());
+  uint4* tab16 = reinterpret_cast<uint4*>(table);
+  const int64_t entries = P == kEstimate ? (int64_t)n * kPieces : n;
+  for (;;) {
+    uint32_t next = 0;
+    if (lane == 0) next = atomicAdd(queue, 1u);
+    const int64_t k = __shfl_sync(0xFFFFFFFFu, next, 0);
+    if (k >= entries) return;
+    const int64_t row = P == kOrdered ? order[k] : P == kEstimate ? k / kPieces : k;
+    const uint32_t len_in = (uint32_t)lens[row];
+    if (P == kEstimate && len_in <= sample) continue;
+    const uint32_t size = P == kEstimate ? sample / kPieces : len_in;
+    const uint8_t* src = blocks + row * in_stride;
+    if (P == kEstimate) src += (k % kPieces) * (len_in / kPieces);
+    const uint32_t tab_chunks = Ways * stpu::table_entries(size) * sizeof(uint16_t) / 16;
+    for (uint32_t c = lane; c < tab_chunks; c += 32) tab16[c] = make_uint4(0, 0, 0, 0);
+    __syncwarp();
+    const stpu::Block block = {src, size};
+    uint8_t* dst = out + row * out_stride;
+    if constexpr (P == kEstimate) {
+      const long long start = clock64();
+      STPU_PROF(7, stpu::encode_block_warp<Ways>(block, dst, table));
+      if (lane == 0) {
+        const long long spent = (clock64() - start) * len_in / sample;
+        atomicAdd(cost + row, (int32_t)(spent < 0x1FFFFFFF ? spent : 0x1FFFFFFF));
+      }
+    } else {
+      STPU_PROF(7, const uint32_t len = stpu::encode_block_warp<Ways>(block, dst, table));
+      if (lane == 0) out_len[row] = (int32_t)len;
+    }
+    __syncwarp();  // the walk is done with the table before the next row zeroes it
+  }
+}
+
+template <int Ways, int P>
+int launch_pass(const uint8_t* blocks, int64_t in_stride, const int32_t* lens, int n,
+                uint8_t* out, int64_t out_stride, int32_t* out_len, int walkers, int ctas,
+                uint32_t* queue, int32_t* cost, const int32_t* order, cudaStream_t stream) {
+  if (walkers < 1 || ctas < 1 || ctas > walkers) return (int)cudaErrorInvalidValue;
+  const int warps = (walkers + ctas - 1) / ctas;
+  const size_t smem = warps * table_bytes<Ways>();
+  // the kernel's dynamic shared memory may reach the card's opt-in limit:
+  // the same value for every launch, so that launches of other sizes on
+  // other threads never lower it under this one
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(encode_blocks_kernel<Ways, P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess) err = cudaMemsetAsync(queue, 0, sizeof(uint32_t), stream);
+  if (err != cudaSuccess) return (int)err;
+  encode_blocks_kernel<Ways, P><<<ctas, 32 * warps, smem, stream>>>(
+      blocks, in_stride, lens, n, out, out_stride, out_len, walkers, queue, cost, order, kSample);
+  return (int)cudaGetLastError();
 }
 
 template <int Ways>
-int launch_encode(const uint8_t* blocks, int64_t in_stride, const int32_t* lens,
-                  int n, uint8_t* out, int64_t out_stride, int32_t* out_len,
-                  cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      encode_blocks_kernel<Ways>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)enc_smem<Ways>());
-  if (err != cudaSuccess) return (int)err;
-  encode_blocks_kernel<Ways><<<n, 32, enc_smem<Ways>(), stream>>>(
-      blocks, in_stride, lens, out, out_stride, out_len);
-  return (int)cudaGetLastError();
+int launch_encode(const uint8_t* blocks, int64_t in_stride, const int32_t* lens, int n,
+                  uint8_t* out, int64_t out_stride, int32_t* out_len, int walkers, int ctas,
+                  uint32_t* queue, int32_t* cost, const int32_t* order, cudaStream_t stream) {
+  if (cost && Ways != 1) return (int)cudaErrorInvalidValue;
+  if (cost) {
+    const cudaError_t err = cudaMemsetAsync(cost, 0, (size_t)n * sizeof(int32_t), stream);
+    if (err != cudaSuccess) return (int)err;
+    return launch_pass<1, kEstimate>(blocks, in_stride, lens, n, out, out_stride, out_len,
+                                     walkers, ctas, queue, cost, order, stream);
+  }
+  if (order)
+    return launch_pass<Ways, kOrdered>(blocks, in_stride, lens, n, out, out_stride, out_len,
+                                       walkers, ctas, queue, cost, order, stream);
+  return launch_pass<Ways, kIndexOrder>(blocks, in_stride, lens, n, out, out_stride, out_len,
+                                        walkers, ctas, queue, cost, order, stream);
 }
 
 }  // namespace
 
 // blocks: uint8 [n, in_stride], lens: int32 [n] (each <= 65536);
 // out: uint8 [n, out_stride], out_stride >= max_compressed_len(65536);
-// out_len: int32 [n]; ways: 1 (level 1) or 2 (level 2).  Launches on
-// `stream`; returns cudaGetLastError() (or cudaErrorInvalidValue for
-// another `ways`).
+// out_len: int32 [n]; ways: 1 (level 1) or 2 (level 2); walkers and ctas:
+// ops/encode_blocks.launch_shape's; queue: 4 bytes of scratch on the card;
+// cost: int32 [n] for the estimate pass (ways 1; zeroed here), else null;
+// order: int32 [n], a permutation of the rows to walk in, or null for 0 ..
+// n - 1.  Launches on `stream`; returns the first CUDA error (or
+// cudaErrorInvalidValue for another `ways` or shape).
 STPU_EXPORT int stpu_encode_blocks(const uint8_t* blocks, int64_t in_stride,
                                    const int32_t* lens, int n, uint8_t* out,
-                                   int64_t out_stride, int32_t* out_len,
-                                   int ways, void* stream) {
+                                   int64_t out_stride, int32_t* out_len, int ways,
+                                   int walkers, int ctas, uint32_t* queue, int32_t* cost,
+                                   const int32_t* order, void* stream) {
   if (ways == 1)
-    return launch_encode<1>(blocks, in_stride, lens, n, out, out_stride,
-                            out_len, (cudaStream_t)stream);
+    return launch_encode<1>(blocks, in_stride, lens, n, out, out_stride, out_len, walkers,
+                            ctas, queue, cost, order, (cudaStream_t)stream);
   if (ways == 2)
-    return launch_encode<2>(blocks, in_stride, lens, n, out, out_stride,
-                            out_len, (cudaStream_t)stream);
+    return launch_encode<2>(blocks, in_stride, lens, n, out, out_stride, out_len, walkers,
+                            ctas, queue, cost, order, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// limits: int64 [2], set to CUDA device `dev`'s opt-in shared memory per
+// block in bytes and its SMs; returns the first CUDA error.
+STPU_EXPORT int stpu_encode_blocks_limits(int dev, int64_t* limits) {
+  int smem = 0, sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  limits[0] = smem;
+  limits[1] = sms;
+  return (int)err;
 }
 
 #else  // CPU twin: the same warp code, its 32 lanes as arrays
@@ -438,11 +548,14 @@ STPU_EXPORT int stpu_encode_blocks(const uint8_t* blocks, int64_t in_stride,
 #include <algorithm>
 #include <vector>
 
+// The rows in order; the launch shape and the queue's order (walkers,
+// ctas, queue, cost, order) are the card's.
 STPU_EXPORT int stpu_twin_encode_blocks(const uint8_t* blocks,
                                         int64_t in_stride, const int32_t* lens,
                                         int n, uint8_t* out,
                                         int64_t out_stride, int32_t* out_len,
-                                        int ways) {
+                                        int ways, int, int, uint32_t*, int32_t*,
+                                        const int32_t*) {
   if (ways != 1 && ways != 2) return 1;
   std::vector<uint16_t> table(2 * stpu::kTableSize);
   for (int64_t row = 0; row < n; ++row) {

@@ -3,7 +3,9 @@
 JAX counterpart: snappy_tpu/ops/encode_scalar.py (the TPU kernel
 ``_kernel`` at ``ways=1`` and ``ways=2``, launched by
 ``encode_blocks_words``).  The CUDA kernel is ``csrc/encode_blocks.cu``:
-one warp per block, 32 probes a batch.
+one warp walks a block, 32 probes a batch; a persistent grid of such
+walkers (``launch_shape``) takes the blocks from a queue on the card,
+costliest first where there are more blocks than walkers.
 The bytes equal the host C encoder at the same level
 (snappy_codec.c:127-222), which equals the TPU kernel's.  Level >= 2
 selects ``ways=2``, two-entry FIFO hash buckets, as the JAX engine does
@@ -15,6 +17,8 @@ is unspecified.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -31,6 +35,7 @@ ENC_CAP = C.max_compressed_len(BLOCK) + 16
 
 _TABLE_BITS = 14
 _K_HASH = 0x1E35A7BD
+TABLE_BYTES = 2 << _TABLE_BITS  # one way of a walker's uint16 hash table
 
 
 def _check(blocks_u8: torch.Tensor, lens: torch.Tensor) -> None:
@@ -74,14 +79,57 @@ def encode_blocks(
         return enc, enc_len
 
 
+def launch_shape(n: int, ways: int, smem_optin: int, sms: int) -> Tuple[int, int]:
+    """K3's grid for ``n`` >= 1 blocks at ``ways`` on a card of ``sms``
+    SMs whose CTAs may opt in to ``smem_optin`` bytes of shared memory:
+    (walkers, CTAs).  A walker is a warp with its own hash table of ``ways
+    * TABLE_BYTES``; a CTA holds as many as that memory allows, at least
+    one, and there is at most one CTA an SM.  The grid holds no more
+    walkers than blocks, spread over as many SMs as there are blocks: each
+    CTA has ceil(walkers / CTAs) warps, and warp w of CTA c walks as
+    walker w * CTAs + c where that is below ``walkers``."""
+    per_cta = max(1, smem_optin // (ways * TABLE_BYTES))
+    return min(n, per_cta * sms), min(n, sms)
+
+
+def card_limits(dev: torch.device) -> Tuple[int, int]:
+    """(opt-in shared memory per CTA in bytes, SMs) of the CUDA device ``dev``."""
+    return _card_limits(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+@functools.cache
+def _card_limits(index: int) -> Tuple[int, int]:
+    fn = _build.cuda_lib().stpu_encode_blocks_limits
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    limits = np.zeros(2, dtype=np.int64)
+    rc = fn(index, limits.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"encode_blocks: CUDA error {rc} reading device {index}'s limits")
+    return int(limits[0]), int(limits[1])
+
+
 def _launch(blocks_u8, lens, enc, enc_len, ways: int = 1) -> None:
-    """Launch the kernel on checked CUDA tensors (N >= 1), no checks."""
-    _build.launch(
-        "encode_blocks", blocks_u8.device,
-        blocks_u8.data_ptr(), blocks_u8.stride(0), lens.data_ptr(), len(lens),
-        enc.data_ptr(), enc.shape[1], enc_len.data_ptr(), ways,
-    )
+    """Launch the kernel on checked CUDA tensors (N >= 1), no checks.
+    With more rows than walkers the rows are walked costliest first: a
+    first launch times level-1 walks of four pieces of each row."""
+    dev = blocks_u8.device
+    n = len(lens)
+    limits = card_limits(dev)
+    walkers, ctas = launch_shape(n, ways, *limits)
+    queue = torch.empty(1, dtype=torch.int32, device=dev)  # the next entry; each launch zeroes it
+    rows = (blocks_u8.data_ptr(), blocks_u8.stride(0), lens.data_ptr(), n, enc.data_ptr(),
+            enc.shape[1], enc_len.data_ptr())
+    order = None
+    if n > walkers:  # the last walks to start set the end: start the longest first
+        cost = torch.empty(n, dtype=torch.int32, device=dev)
+        _build.launch("encode_blocks", dev, *rows, 1, *launch_shape(n, 1, *limits), queue.data_ptr(),
+                      cost.data_ptr(), None)
+        order = torch.argsort(cost, descending=True, stable=True).to(torch.int32)
+        telemetry.count("k3.ordered")
+    _build.launch("encode_blocks", dev, *rows, ways, walkers, ctas, queue.data_ptr(), None,
+                  None if order is None else order.data_ptr())
     telemetry.count("k3.launches" if ways == 1 else "k3.launches_l2")
+    telemetry.count("k3.walkers", walkers)
 
 
 def _literal(out: bytearray, lit: bytes) -> None:

@@ -26,8 +26,10 @@ nothing):
     k1.launches          ops/crc32c.py: K1 launches (both kernels of a call count once)
     k2.launches          ops/decode_chunks.py: K2 launches at W <= 65536
     k2.launches_big      ... and at the big-window shape, W > 65536
-    k3.launches          ops/encode_blocks.py: K3 launches at level 1 (ways=1)
+    k3.launches          ops/encode_blocks.py: K3 calls at level 1 (ways=1; an ordered call's two launches count once)
     k3.launches_l2       ... and at level >= 2 (ways=2)
+    k3.walkers           walkers (warps that take rows from K3's queue) launched, both levels
+    k3.ordered           K3 calls with more rows than walkers, whose rows went costliest first
     k4.launches          ops/decode_stream.py: decode_stream calls, either route
     k4.launches_windows  launches of K4's window route (pass 1 and pass 2)
     k4.launches_walk     launches of the whole-stream walk

@@ -141,6 +141,7 @@ def run_twin(twin, blocks, ways):
     rc = twin.stpu_twin_encode_blocks(
         rows.ctypes.data, 65536, lens.ctypes.data, len(blocks),
         enc.ctypes.data, encode_blocks.ENC_CAP, enc_len.ctypes.data, ways,
+        0, 0, None, None, None,  # the twin walks the rows in order: no launch shape, no queue
     )
     assert rc == 0
     return [enc[k, :n].tobytes() for k, n in enumerate(enc_len)]
@@ -156,3 +157,37 @@ def test_twin_matches_plain(twin, which):
 def test_level2_twin_matches_plain(twin, which):
     blocks = l2_blocks() if which == "small" else big_blocks()
     assert run_twin(twin, blocks, 2) == run_plain(blocks, level=2)
+
+
+@pytest.mark.parametrize("smem_optin, ways, per_cta", [
+    (232_448, 1, 7), (232_448, 2, 3),  # the H100's opt-in shared memory per CTA
+    (101_376, 1, 3), (101_376, 2, 1),
+    (49_152, 1, 1), (49_152, 2, 1),  # less than a two-way table: still one walker
+])
+@pytest.mark.parametrize("n", [1, 2, 7, 131, 132, 923, 924, 925, 3441])
+def test_launch_shape(smem_optin, ways, per_cta, n):
+    """K3's walkers and CTAs on a card of 132 SMs: as many walkers a CTA as
+    the card's shared memory holds tables, never more walkers than blocks,
+    a small batch spread one walker an SM; the kernel's warps name each
+    walker once, and walkers taking rows from one counter in any order
+    walk every row once."""
+    sms = 132
+    walkers, ctas = encode_blocks.launch_shape(n, ways, smem_optin, sms)
+    assert walkers == min(n, per_cta * sms)
+    assert ctas == min(n, sms) and 1 <= ctas <= walkers <= n
+    warps = -(-walkers // ctas)
+    assert warps <= per_cta
+    assert warps * ways * encode_blocks.TABLE_BYTES <= max(smem_optin, ways * encode_blocks.TABLE_BYTES)
+    # warp w of CTA c walks as walker w * ctas + c while that is below walkers
+    ids = [w * ctas + c for c in range(ctas) for w in range(warps) if w * ctas + c < walkers]
+    assert sorted(ids) == list(range(walkers))
+    rng = random.Random(n * 8 + ways)
+    queue, walked, live = 0, [], list(ids)
+    while live:  # a free walker takes the next entry, or leaves once none is left
+        w = rng.choice(live)
+        row, queue = queue, queue + 1
+        if row < n:
+            walked.append(row)
+        else:
+            live.remove(w)
+    assert sorted(walked) == list(range(n))

@@ -50,6 +50,7 @@ def run_twin(twin, blocks, level):
     rc = twin.stpu_twin_encode_blocks(
         rows.ctypes.data, 65536, lens.ctypes.data, len(blocks),
         enc.ctypes.data, encode_blocks.ENC_CAP, enc_len.ctypes.data, level,
+        0, 0, None, None, None,  # the twin walks the rows in order: no launch shape, no queue
     )
     assert rc == 0
     return [enc[k, :n].tobytes() for k, n in enumerate(enc_len)]

@@ -19,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from snappy_tpu_torch import telemetry  # noqa: E402
-from snappy_tpu_torch.ops import _build, crc32c, decode_chunks  # noqa: E402
+from snappy_tpu_torch.ops import _build, crc32c, decode_chunks, encode_blocks  # noqa: E402
 from snappy_tpu_torch.testing import guards, payloads  # noqa: E402
 
 if shutil.which("g++") is None:
@@ -29,13 +29,14 @@ if shutil.which("g++") is None:
 @pytest.fixture
 def to_twin(monkeypatch):
     """``_build.launch`` on the twin: the entry point's arguments without
-    the stream."""
+    the stream; K3's launch shape from the H100's limits."""
     twin = _build.twin_lib()
 
     def launch(name, device, *args):
         assert getattr(twin, "stpu_twin_" + name)(*args) == 0, name
 
     monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(encode_blocks, "card_limits", lambda dev: (232_448, 132))
     return launch
 
 
@@ -55,8 +56,12 @@ def test_every_kernel_holds_its_guards(to_twin):
     assert torch.equal(g.crc32c_mma(rows, lens, "blocks"), want)
     payload = np.frombuffer(payloads.mixed_payload(200_003, seed=5), dtype=np.uint8)
     g.crc32c(payload, 3, 200_000, 1, 200_000, [200_000], "one long row at offset 3")
+    k3 = ("k3.launches", "k3.launches_l2", "k3.walkers")
+    before = [telemetry.counter(c) for c in k3]
     for level in (1, 2):
         g.encode_blocks(rows, lens, level, "blocks")
+    l1, l2, walkers = (telemetry.counter(c) - b for c, b in zip(k3, before))
+    assert l1 == l2 >= len(guards.FILLS) and walkers == len(lens) * (l1 + l2)  # a walker a block
     big = payloads.big_window_cases()
     comp = b"".join(b for b, _ in big)
     offs = np.cumsum([0] + [len(b) for b, _ in big])
@@ -73,6 +78,28 @@ def test_every_kernel_holds_its_guards(to_twin):
              "decode_chunks", "decode_chunks_big", "decode_stream", "decode_stream_scan")
     assert all(g.guarded[n] >= len(guards.FILLS) for n in names), dict(g.guarded)
     assert g.guarded["crc32c_mma"] == len(guards.FILLS)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_k3_orders_the_rows_past_its_walkers(to_twin, monkeypatch, level):
+    """On a card of 2 SMs with room for one or two tables a CTA, the 8
+    blocks outnumber K3's walkers: a first launch estimates each row's
+    cost and the walk takes the rows in that order, inside the guards and
+    with the plain version's bytes."""
+    monkeypatch.setattr(encode_blocks, "card_limits", lambda dev: (65_536, 2))
+    rows, lens = blocks()
+    k3 = ("k3.ordered", "k3.walkers")
+    before = [telemetry.counter(c) for c in k3]
+    g = guards.Guard("cpu")
+    got = g.encode_blocks(rows, lens, level, "blocks")
+    ordered, walkers = (telemetry.counter(c) - b for c, b in zip(k3, before))
+    assert g.failures == [] and ordered == len(guards.FILLS)
+    assert walkers == len(guards.FILLS) * (4 if level == 1 else 2)
+    enc, enc_len = encode_blocks._encode_blocks_plain(torch.from_numpy(rows), torch.from_numpy(lens),
+                                                      level)
+    assert torch.equal(got["enc_len"], enc_len)
+    for k, m in enumerate(enc_len.tolist()):
+        assert torch.equal(got["enc"][k, :m], enc[k, :m]), k
 
 
 def test_guarded_launches_go_through_the_counted_wrappers(to_twin):
