@@ -13,7 +13,10 @@ The controls break one guarantee that the configurations state:
   streams that are not the level-1 encoder's bytes;
 * ``crc_head`` (decode cells): K1 replaced by the reference's masked
   CRC32C of each row's first 4 KiB only, a checksum that reads less of
-  each chunk.
+  each chunk;
+* a step kind of its own (``entries/<entry>.py``) names its control there,
+  as ``CONTROL = (name, context manager)``: ``api_decode``'s
+  ``no_integrity`` calls the API with ``check_integrity=False``.
 """
 
 import time
@@ -71,6 +74,16 @@ def crc_head():
 CONTROLS = {"encode": ("array", array_route), "decode": ("crc_head", crc_head)}  # by the step's kind
 
 
+def control_of(cell):
+    """(name, context manager) of the control of ``cell``'s step kind."""
+    entry = cell.traffic["entry"]
+    if entry in CONTROLS:
+        return CONTROLS[entry]
+    from benchmark.lib import kinds
+
+    return kinds.module(cell.bench_dir, entry).CONTROL
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
@@ -81,7 +94,7 @@ def main(argv=None) -> int:
 
     cell = cells.load(args.workload)
     dev = device.require_cards(cell.chips)
-    name, control = CONTROLS[cell.traffic["entry"]]
+    name, control = control_of(cell)
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         with control():

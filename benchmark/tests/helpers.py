@@ -1,31 +1,44 @@
-"""Cells cut to a few frames, run on the CPU through the program's plain paths."""
+"""Cells cut to a few frames, run on the CPU through the program's plain paths.
 
+The cells are those of ``BENCHMARK.json``.  A configuration's CPU size is
+``tiny.json`` beside its ``config.json``: the keys it sets over the
+configuration keep a CPU run to a second or two and leave every width as
+the spec's.  So a cell that a later change adds, of any configuration and
+step kind, is cut and run here from its own files.
+"""
+
+import json
 import time
+from pathlib import Path
 
 import torch
 
 from benchmark.lib import cells, harness
 
-# sizes that keep a CPU run to a second or two; widths stay the spec's
-TINY = {
-    "beacon_state": dict(validators=256, epochs_per_historical_vector=64, slots_per_historical_root=64,
-                         epochs_per_slashings_vector=64, historical_roots=8, eth1_data_votes=8,
-                         historical_summaries=8, pending_deposits=8),
-    "blob_sidecars": dict(responses=1, sidecars_per_response=4),
-}
-CELLS = ("beacon_state.encode_step", "beacon_state.decode_step",
-         "blob_sidecars.decode_step", "blob_sidecars.encode_step")
+SPEC = cells.read_spec()
+CELLS = tuple(w["name"] for w in SPEC["workloads"])
 
 
-def tiny_cell(name: str, sample_frames: int = 4) -> cells.Cell:
-    cell = cells.load(name)
-    cell.config = dict(cell.config, **TINY[cell.config_name])
+def tiny_sizes(config_dir: Path) -> dict:
+    return json.loads((config_dir / "tiny.json").read_text())
+
+
+TINY = {c["name"]: tiny_sizes((cells.ROOT / c["file"]).parent) for c in SPEC["configs"]}
+
+
+def tiny_cell(name: str, sample_frames: int = 4, root: Path = cells.ROOT) -> cells.Cell:
+    cell = cells.load(name, root=root)
+    cell.config = dict(cell.config, **tiny_sizes(cell.config_dir))
     cell.traffic = dict(cell.traffic, warmup_steps=0, sample_frames=sample_frames)
     return cell
 
 
-def run_cpu(name: str, seed: int = 2**31 + 5, sample_frames: int = 4):
-    """(result line, {check: value}) of one short run of the tiny cell."""
-    line, checks = harness.execute(tiny_cell(name, sample_frames), seed, 0.0, False, time.perf_counter(),
-                                   torch.device("cpu"))
+def run_cell(cell: cells.Cell, seed: int = 2**31 + 5, traced: bool = False):
+    """(result line, {check: value}) of one short run of ``cell`` on the CPU."""
+    line, checks = harness.execute(cell, seed, 0.0, traced, time.perf_counter(), torch.device("cpu"))
     return line, {n: v for n, v, _ in checks}
+
+
+def run_cpu(name: str, seed: int = 2**31 + 5, sample_frames: int = 4, root: Path = cells.ROOT):
+    """(result line, {check: value}) of one short run of the tiny cell."""
+    return run_cell(tiny_cell(name, sample_frames, root), seed)

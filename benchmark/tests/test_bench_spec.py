@@ -10,7 +10,9 @@ import time
 import pytest
 import torch
 
-from benchmark.lib import cells, harness
+from benchmark.lib import cells, harness, kinds, steps
+
+from .helpers import run_cpu, tiny_sizes
 
 SPEC = cells.read_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -67,16 +69,51 @@ def test_each_per_layer_metric_moves_a_metric_its_cells_report():
             assert cell in moved.get("workloads", CELL_NAMES), (m["name"], cell)
 
 
-@pytest.mark.parametrize("name", CELL_NAMES)
-def test_cell_resolves_by_name(name):
-    cell = cells.load(name)
+def check_cell_resolves(cell: cells.Cell) -> None:
     assert cell.chips == 1
     assert callable(cell.generator().make)
-    assert cell.traffic["entry"] in ("encode", "decode")
+    kind = kinds.step_class(cell.bench_dir, cell.traffic["entry"])
+    for method in ("__call__", "failed", "release", "work", "check"):
+        assert callable(getattr(kind, method)), (kind, method)
+    assert set(tiny_sizes(cell.config_dir)) <= set(cell.config)  # the CPU size sets the configuration's keys
     reported = [m["name"] for m in cell.end_to_end]
     assert "setup_s" in reported and len(reported) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
         assert callable(cell.reader(m["name"]))
+
+
+@pytest.mark.parametrize("name", CELL_NAMES)
+def test_cell_resolves_by_name(name):
+    check_cell_resolves(cells.load(name))
+
+
+def _copy(tmp_path):
+    """A checkout of BENCHMARK.json and the benchmark under tmp_path; the
+    benchmark's files and their bytes."""
+    root = tmp_path / "checkout"
+    shutil.copytree(cells.HERE, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "BENCHMARK.json").write_text(json.dumps(SPEC))
+    return root, {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+
+
+def test_a_traffic_naming_no_step_kind_fails(tmp_path):
+    root, _ = _copy(tmp_path)
+    (root / "benchmark" / "traffic" / "nowhere.json").write_text(json.dumps({"entry": "no_kind", "warmup_steps": 0}))
+    (root / "benchmark" / "traffic" / "misnamed.json").write_text(json.dumps({"entry": "misnamed", "warmup_steps": 0}))
+    (root / "benchmark" / "entries" / "misnamed.py").write_text(
+        "from benchmark.lib.steps import DecodeStep\n\nclass Step(DecodeStep):\n    pass\n")  # its entry: 'decode'
+    spec = json.loads(json.dumps(SPEC))
+    for traffic in ("nowhere", "misnamed"):
+        spec["workloads"].append({"name": f"beacon_state.{traffic}", "config": "beacon_state", "traffic": traffic,
+                                  "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    for traffic in ("nowhere", "misnamed"):
+        cell = cells.load(f"beacon_state.{traffic}", root=root)
+        with pytest.raises(LookupError, match=traffic if traffic == "misnamed" else "no step kind"):
+            check_cell_resolves(cell)
+    cell = cells.load("beacon_state.nowhere", root=root)
+    with pytest.raises(FileNotFoundError):
+        steps.make(cell.traffic, cell.config, None, [], None, "cpu", cell.bench_dir)
 
 
 @pytest.mark.parametrize("conf", SPEC["configs"], ids=lambda c: c["name"])
@@ -90,11 +127,10 @@ def test_config_file_holds_the_configuration(conf):
 
 def test_a_new_config_traffic_and_metric_load_without_edits(tmp_path):
     """A later change adds files and entries only: copy the benchmark, add
-    a configuration, a traffic mix and a metric beside what is there, and
-    load the new cell from the copy."""
-    root = tmp_path / "checkout"
-    shutil.copytree(cells.HERE, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    a configuration with its CPU size, a traffic mix, a metric and a step
+    kind beside what is there, and load and run the new cells from the
+    copy as the real cells are."""
+    root, before = _copy(tmp_path)
     conf_dir = root / "benchmark" / "configs" / "dummy"
     conf_dir.mkdir()
     (conf_dir / "config.json").write_text(json.dumps({"name": "dummy", "frame_bytes": 65536, "level": 1, "reduced": []}))
@@ -120,10 +156,23 @@ def test_a_new_config_traffic_and_metric_load_without_edits(tmp_path):
     assert all(p.read_bytes() == b for p, b in before.items())
     line, checks = harness.execute(cell, 7, 0.0, False, time.perf_counter(), torch.device("cpu"))
     assert line["correct"] and line["attempted"] == 1 and "setup_s" in line["metrics"]
-    # a new kind of step is a file too: entries/<entry>.py with a class Step
-    (root / "benchmark" / "entries").mkdir()
+    # a new kind of step is a file too: entries/<entry>.py with a class Step,
+    # and the configuration's CPU size is tiny.json beside its config.json
     (root / "benchmark" / "entries" / "dummy_kind.py").write_text(
         "from benchmark.lib.steps import DecodeStep\n\nclass Step(DecodeStep):\n    entry = 'dummy_kind'\n")
-    cell.traffic = {"entry": "dummy_kind", "warmup_steps": 0}
-    line, _ = harness.execute(cell, 7, 0.0, False, time.perf_counter(), torch.device("cpu"))
-    assert line["correct"] and line["attempted"] == 1
+    (root / "benchmark" / "traffic" / "dummy_kind.json").write_text(json.dumps({"entry": "dummy_kind", "warmup_steps": 0}))
+    (conf_dir / "tiny.json").write_text(json.dumps({"level": 1}))
+    spec["workloads"].append({"name": "dummy.dummy_kind", "config": "dummy", "traffic": "dummy_kind",
+                              "chips": 1, "why": "a test"})
+    spec["end_to_end"].append({"name": "dummy_gbps", "unit": "GB/s", "better": "higher", "bound": 0.05,
+                               "source": "host_clock", "workloads": ["dummy.dummy_kind"]})
+    spec["per_layer"][-1]["workloads"].append("dummy.dummy_kind")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    (root / "benchmark" / "metrics" / "dummy_gbps.py").write_text(
+        "def read(run):\n    return run.payload_bytes * run.steps / run.window_s / 1e9\n")
+    for name in ("dummy.decode", "dummy.dummy_kind"):
+        check_cell_resolves(cells.load(name, root=root))
+    line, checks = run_cpu("dummy.dummy_kind", seed=7, root=root)
+    assert line["correct"] and line["attempted"] == 1 and not any(checks.values())
+    assert {"setup_s", "dummy_gbps"} <= set(line["metrics"])
+    assert all(p.read_bytes() == b for p, b in before.items())
