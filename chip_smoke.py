@@ -237,7 +237,9 @@ Phases, each reported on its own lines:
               engine's framed stream on that route (phases 4 and 12), each
               compressed chunk's body equals enc[k, :totals[k]], K1
               launches once a step and K3 once on the kernel route and
-              never on the array route, no other kernel; the step timed
+              never on the array route, no other kernel, enc is the
+              encoder's own contiguous buffer of max_comp(65536) columns
+              (K3's ENC_CAP rows whole, no copy); the step timed
               with CUDA events (mean of 10 after a warm-up) and its peak
               device memory; (c) dryrun_multichip(torch.cuda.device_count())
               and its line; the launches of (b) and (c) counted as in 8.
@@ -2206,6 +2208,9 @@ def main() -> None:
             crcs_d, enc_d, totals_d = fn(*full)
             torch.cuda.synchronize()
             step_launches[route] = counts()
+            # the encoder's own buffer of the step's width: nothing copied or widened it
+            assert enc_d.is_contiguous() and enc_d.shape[1] == entry.max_comp(65536) \
+                and enc_d.untyped_storage().nbytes() == enc_d.numel(), ("entry enc buffer", route, enc_d.shape)
             crcs_h, totals_h = crcs_d.cpu().numpy(), totals_d.cpu().numpy()
             enc_h = enc_d.cpu().numpy()
             s = route_streams[route]
@@ -2236,7 +2241,8 @@ def main() -> None:
             print(f"entry: ({route} route) the step at full width, {full[0].shape[0]} frames of 64 KiB: "
                   f"{len(chunks)} CRCs equal the stored CRCs of the engine's framed stream on this route, "
                   f"{n_comp} compressed chunks' bodies equal enc[:totals]; launches K1 "
-                  f"{step_launches[route]['crc32c']}, K3 {step_launches[route]['encode_blocks']}, others 0")
+                  f"{step_launches[route]['crc32c']}, K3 {step_launches[route]['encode_blocks']}, others 0; "
+                  f"enc one contiguous {tuple(enc_h.shape)} buffer")
             print(f"timing: entry step ({route} route) {step_ms:.4f} ms for {full[0].shape[0]} x 64 KiB "
                   f"(CUDA events, mean of 10 after a warm-up; bound {step_bound:.4f} ms by {step_by}: "
                   f"{moved} bytes); peak device memory above the inputs {peak_mb:.1f} MB {tag}")

@@ -49,7 +49,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-import torch.nn.functional as F
 
 from . import api, config, engine, telemetry
 from .formats import constants as C
@@ -67,7 +66,8 @@ SPAWN_WAIT_S = 600  # for the spawned ranks to finish
 
 def max_comp(b: int) -> int:
     """The step's encoded width for frames of ``b`` bytes
-    (__graft_entry__.py:28); ``max_compressed_len(b)`` fits in it."""
+    (__graft_entry__.py:28); ``max_compressed_len(b)`` fits in it, and
+    ``max_comp(65536)`` is K3's row width, ``encode_blocks.ENC_CAP``."""
     return b + b // 6 + 64
 
 
@@ -80,7 +80,8 @@ def step(frames_u8: torch.Tensor, flens: torch.Tensor):
     [N]), the raw tag stream of each frame at level 1 (uint8 [N,
     max_comp(B)], frame i's in ``enc[i, :totals[i]]``) and ``totals``
     (int32 [N]), on the frames' device: K1, then K3 or, off the ``scalar``
-    route, the array encoder."""
+    route, the array encoder.  ``enc`` is the encoder's own buffer: at B =
+    65536 the whole of K3's rows, below it a view of their first columns."""
     with telemetry.span("entry.step"):
         b = frames_u8.shape[1]
         if b > C.MAX_BLOCK_LEN:
@@ -88,12 +89,7 @@ def step(frames_u8: torch.Tensor, flens: torch.Tensor):
         width = max_comp(b)
         crcs = crc32c.masked_crc32c_chunks(frames_u8, flens)
         enc, totals = engine._encode_rows(frames_u8, flens, 1, width)
-        with telemetry.span("entry.pad"):
-            if enc.shape[1] >= width:  # K3's rows are ENC_CAP wide
-                enc = enc[:, :width]
-            else:
-                enc = F.pad(enc, (0, width - enc.shape[1]))
-        return crcs, enc, totals
+        return crcs, enc[:, :width], totals
 
 
 def entry(device: config.DeviceLike = None):

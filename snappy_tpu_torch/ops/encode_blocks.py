@@ -30,8 +30,10 @@ from . import _build
 
 BLOCK = C.MAX_BLOCK_LEN
 # Output capacity per block: the format's worst case plus 16 bytes of slack
-# (snappy_codec.c:52-64 writes literal bursts up to 16 bytes past the end).
-ENC_CAP = C.max_compressed_len(BLOCK) + 16
+# (snappy_codec.c:52-64 writes literal bursts up to 16 bytes past the end),
+# and 16 more, so that the rows are the flagship step's max_comp(65536) =
+# 76,522 bytes wide and entry.step keeps K3's buffer as it is.
+ENC_CAP = C.max_compressed_len(BLOCK) + 32
 
 _TABLE_BITS = 14
 _K_HASH = 0x1E35A7BD

@@ -15,7 +15,11 @@ profiler records, so it lands in the profiler's trace as a
 ``user_annotation`` beside the card's kernels and copies, and it adds to
 an in-memory store keyed by its name (``spans()``): calls, host seconds,
 self seconds (less its child spans), seconds of calls made outside every
-other span, the reads it declares and its enclosing span.  A span named
+other span, the reads it declares and its enclosing span.  Under the
+profiler it also holds the seconds from before its range's enter to after
+its range's exit: the range's own stamps fall between that and its host
+seconds, however long the profiler's calls or a stall in them take, and
+the difference is what the range itself cost.  A span named
 ``read.*`` holds one blocking device-to-host read site and declares how
 many reads it makes.
 
@@ -75,6 +79,7 @@ class Stat:
     total_s: float = 0.0
     self_s: float = 0.0  # total less the time of its child spans
     outer_s: float = 0.0  # of the calls made outside every other span
+    ranged_s: float = 0.0  # under the profiler: from before its range's enter to after its exit
     reads: int = 0  # the reads its calls declared
     parent: Optional[str] = None  # the enclosing span of its latest call
 
@@ -107,7 +112,7 @@ def _stack() -> List["_Span"]:
 
 
 class _Span:
-    __slots__ = ("name", "reads", "parent", "child_s", "t0", "range")
+    __slots__ = ("name", "reads", "parent", "child_s", "t0", "r0", "range")
 
     def __init__(self, name: str, reads: int):
         self.name, self.reads = name, reads
@@ -118,6 +123,7 @@ class _Span:
         stack.append(self)
         self.range = None
         if _profiling():
+            self.r0 = time.perf_counter()
             self.range = torch.profiler.record_function(PREFIX + self.name)
             self.range.__enter__()
         self.child_s = 0.0
@@ -126,8 +132,10 @@ class _Span:
 
     def __exit__(self, *exc):
         dt = time.perf_counter() - self.t0
+        ranged = 0.0
         if self.range is not None:
             self.range.__exit__(*exc)
+            ranged = time.perf_counter() - self.r0
         _stack().pop()
         if self.parent is not None:
             self.parent.child_s += dt
@@ -139,6 +147,7 @@ class _Span:
             st.total_s += dt
             st.self_s += dt - self.child_s
             st.reads += self.reads
+            st.ranged_s += ranged
             if self.parent is None:
                 st.outer_s += dt
                 st.parent = None

@@ -5,7 +5,10 @@ The step on the array route (``SNAPPY_TPU_TORCH_DEVICE_KERNEL=xla``)
 equals the JAX entry's step on its example arguments, element for
 element; on the kernel route (the default) its CRCs equal the JAX ones
 and each frame's bytes the JAX package's level-1 encode, at the example
-shape and at 64 KiB frames.  One spawn of 3
+shape, at 64 KiB frames and at 512-byte frames.  ``enc`` is the
+encoder's own buffer, never a copy: K3's rows are ``max_comp(65536)``
+bytes wide, so at 64 KiB frames the step returns all of them.
+One spawn of 3
 gloo ranks runs ``dryrun_multichip(3, device="cpu")``: its array-route
 bytes equal the JAX mesh's on the 8-device CPU mesh of tests/conftest.py,
 its kernel-route bytes the JAX package's.
@@ -30,6 +33,8 @@ from snappy_tpu.ops import crc32c_jax  # noqa: E402
 from snappy_tpu.parallel import mesh as jax_mesh  # noqa: E402
 
 from snappy_tpu_torch import engine, entry  # noqa: E402
+from snappy_tpu_torch.formats import constants as C  # noqa: E402
+from snappy_tpu_torch.ops import encode_blocks  # noqa: E402
 from snappy_tpu_torch.testing import payloads  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -69,6 +74,16 @@ def full_width():
     return engine._split_blocks(np.frombuffer(p, dtype=np.uint8), CPU)
 
 
+def narrow():
+    """Three seeded frames of 512, 512 and 300 bytes, zero-padded to 512."""
+    p = payloads.mixed_payload(2 * 512 + 300, seed=6)
+    rows = np.zeros((3, 512), dtype=np.uint8)
+    for k in range(3):
+        part = np.frombuffer(p[k * 512 : (k + 1) * 512], dtype=np.uint8)
+        rows[k, : len(part)] = part
+    return torch.from_numpy(rows), torch.tensor([512, 512, 300], dtype=torch.int32)
+
+
 def run_step(route, monkeypatch, frames, flens):
     if route == "xla":
         monkeypatch.setenv(ROUTE, "xla")
@@ -76,8 +91,14 @@ def run_step(route, monkeypatch, frames, flens):
         monkeypatch.delenv(ROUTE, raising=False)
     crcs, enc, totals = entry.step(frames, flens)
     b = frames.shape[1]
+    width = b + b // 6 + 64
     assert crcs.dtype == torch.uint32 and totals.dtype == torch.int32 and enc.dtype == torch.uint8
-    assert enc.shape == (len(flens), b + b // 6 + 64) and crcs.device == enc.device == totals.device == CPU
+    assert enc.shape == (len(flens), width) and crcs.device == enc.device == totals.device == CPU
+    # the encoder's own buffer: K3's rows (the whole of them at B = 65536)
+    # or the array encoder's of the step's width, and no copy
+    base = width if route == "xla" else encode_blocks.ENC_CAP
+    assert enc.untyped_storage().nbytes() == len(flens) * base
+    assert enc.is_contiguous() == (base == width)
     return crcs.numpy(), enc.numpy(), totals.numpy()
 
 
@@ -93,24 +114,34 @@ def test_array_route_equals_the_jax_entry(jax_entry, monkeypatch):
         assert g.shape == w.shape and np.array_equal(g, w.astype(g.dtype))
 
 
-@pytest.mark.parametrize("shape", ["example", "full_width"])
+@pytest.mark.parametrize("shape", ["example", "full_width", "narrow"])
 def test_kernel_route_equals_the_jax_package(shape, jax_entry, monkeypatch):
     """K1's CRCs equal the JAX ones, and K3's bytes of each frame equal
-    ``snappy_tpu.encode`` of it (host C, level 1) without its varint."""
+    ``snappy_tpu.encode`` of it (host C, level 1) without its varint, at
+    frames of 4096 (the example), 65536 and 512 bytes."""
     if shape == "example":
         jfn, jargs = jax_entry
         frames, flens = entry.entry("cpu")[1]
         want_crcs = np.asarray(jfn(*jargs)[0])
     else:
-        frames, flens = full_width()
+        frames, flens = full_width() if shape == "full_width" else narrow()
         f32 = jnp.asarray(frames.numpy().astype(np.int32))
-        want_crcs = np.asarray(crc32c_jax.masked_crc32c_chunks(f32, jnp.asarray(flens.numpy()), 65536))
+        want_crcs = np.asarray(crc32c_jax.masked_crc32c_chunks(f32, jnp.asarray(flens.numpy()),
+                                                               frames.shape[1]))
     crcs, enc, totals = run_step("scalar", monkeypatch, frames, flens)
     assert np.array_equal(crcs, want_crcs.astype(np.uint32))
     for i, n in enumerate(flens.tolist()):
         raw = snappy_tpu.encode(frames[i, :n].numpy().tobytes())
         _, skip = jax_varint.decode_uint32(raw)
         assert enc[i, : totals[i]].tobytes() == raw[skip:], (shape, i)
+
+
+@pytest.mark.parametrize("b", [1, 512, 4096, 65535, 65536])
+def test_k3_rows_hold_the_step_width(b):
+    """K3's rows are the step's width at 64 KiB frames and wider below, and
+    the step's width holds the format's worst case with 16 bytes to spare."""
+    assert encode_blocks.ENC_CAP == entry.max_comp(65536)
+    assert C.max_compressed_len(b) + 16 <= entry.max_comp(b) <= encode_blocks.ENC_CAP
 
 
 def test_step_refuses_frames_over_64_kib():
