@@ -210,13 +210,10 @@ Phases, each reported on its own lines:
               over the same 768 blocks, the same-machine control, and
               likewise the host C CRC for K1; for K1 (crc32c at 768 x
               64 KiB, crc32c_long on the payload as one row) its registers,
-              shared memory and CTAs per SM and the A/B of its two layouts
-              (testing/crc_layouts.measure); for K6 its registers,
-              spills, shared memory and CTAs per SM; for K2
-              the registers of each shape's kernel (ptxas) and its CTAs per
-              SM, and the A/B of its two layouts at both shapes
-              (testing/decode_layouts.measure: the row in shared memory,
-              or written in place in global memory); then the end-to-end
+              shared memory and CTAs per SM; for K6 its registers,
+              spills, shared memory and CTAs per SM; for K2 the registers
+              of each shape's kernel (ptxas) and its CTAs per SM
+              (testing/decode_layouts.ctas_per_sm); then the end-to-end
               rates once more on the host backend, each beside the device
               backend's, with the CPU model and os.cpu_count(); each
               end-to-end path's peak device memory above what was
@@ -327,7 +324,7 @@ K3_SLICES = (1, 7, 8, 924, 925)  # K3's batches across its walker and grid edges
 K3_RAGGED = (65536, 856, 16, 0) * 233  # the rows of K3's ragged batch
 ENCODER_DIFFERENTIAL = 1200  # blocks per level held against the host C encoder
 DECODER_DIFFERENTIAL = 600  # raw streams held against the host C decoder
-K2_SHAPE = {"decode_chunks": "chunk", "decode_chunks_big": "big"}  # decode_layouts' shapes
+K2_SHAPE = {"decode_chunks": 65536, "decode_chunks_big": 131072}  # each K2 row's width
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate, dense int8 tensor-core peak
 INT8_OPS_PER_S = 1.979e15
 SHARDED = ("crc32c", "decode_chunks", "encode_blocks")  # the kernels of the sharded paths
@@ -1457,7 +1454,7 @@ def main() -> None:
           f"equals the host C CRC; no kernel launched")
 
     # 7. the fused CRC --------------------------------------------------------
-    all_frames, all_lens = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
+    all_frames, all_lens = engine.split_frames(np.frombuffer(payload, dtype=np.uint8), dev)
     reset_counts()
     fused = crc32c_mma.masked_crc32c_chunks_fused(all_frames, all_lens)
     fused_launches = counts()
@@ -2003,44 +2000,32 @@ def main() -> None:
                              "pass1_ms": scan_pass1_ms, "pass2_ms": scan_pass2_ms,
                              "walked": int(r_state[decode_stream.S_WALKED]),
                              "no_index_ms": scan_walk_ms, "no_index_walked": scan_walked})
-    # K2: registers and CTAs per SM of each shape's kernel, and both layouts
-    from snappy_tpu_torch.testing import decode_layouts
+    # K2: registers and CTAs per SM of each shape's kernel
+    from snappy_tpu_torch.testing import crc_layouts, decode_layouts
 
-    k2_regs = decode_layouts.registers(_build.cuda_build_log())
-    k2_layouts = decode_layouts.measure(reps=10, profile=False)
+    log = _build.cuda_build_log()
     for row in rows:
         if row["name"] in K2_SHAPE:
-            shape = K2_SHAPE[row["name"]]
-            layout, times = k2_layouts[shape]["layout"], k2_layouts[shape]["ms"]
-            row.update({"layout": layout, "registers": k2_regs[layout],
-                        "ctas_per_sm": k2_layouts[shape]["ctas_per_sm"][layout],
-                        "layouts_ms": times})
-            print(f"timing: {row['name']} ({shape} shape) layout {layout}: {row['registers']} "
-                  f"registers, {row['ctas_per_sm']} CTAs per SM; the A/B (a, b, b, a): layout a "
-                  f"{times['a'][0]:.4f} / {times['a'][1]:.4f} ms, layout b {times['b'][0]:.4f} / "
-                  f"{times['b'][1]:.4f} ms {tag}")
-    # K1: registers, shared memory and CTAs per SM, and both layouts
-    from snappy_tpu_torch.testing import crc_layouts
-
+            width = K2_SHAPE[row["name"]]
+            layout = decode_chunks.kernel_params(_build.cuda_lib(), width)["layout"]
+            row.update({"layout": layout,
+                        "registers": _build.ptxas_usage(log, decode_layouts.KERNEL[layout]).get("registers"),
+                        "ctas_per_sm": decode_layouts.ctas_per_sm(width)})
+            print(f"timing: {row['name']} (W={width}) layout {layout}: {row['registers']} registers, "
+                  f"{row['ctas_per_sm']} CTAs per SM {tag}")
+    # K1: registers, shared memory and CTAs per SM
     k1 = crc_layouts.kernel_params(_build.cuda_lib())
-    k1_regs = crc_layouts.registers(_build.cuda_build_log())["i"]
-    k1_layouts = crc_layouts.measure(reps=10)
+    k1_regs = _build.ptxas_usage(log, "crc32c_tiles_kernel").get("registers")
     for row in rows:
         if row["name"] in ("crc32c", "crc32c_long"):
-            times = k1_layouts["chunks" if row["name"] == "crc32c" else "long"]["ms"]
             row.update({"layout": "i", "registers": k1_regs, "ctas_per_sm": k1["ctas_per_sm"],
-                        "smem_bytes": k1["smem_bytes"], "table_bytes": k1["table_bytes"],
-                        "layouts_ms": times})
+                        "smem_bytes": k1["smem_bytes"], "table_bytes": k1["table_bytes"]})
             print(f"timing: {row['name']} layout (i): {k1_regs} registers, {k1['smem_bytes']} bytes "
                   f"of shared memory a CTA ({k1['table_bytes']} of per-bank tables), "
-                  f"{k1['ctas_per_sm']} CTAs per SM of {32 * k1['warps']} threads; the A/B (i, ii, "
-                  f"ii, i): layout (i) {times['i'][0]:.4f} / {times['i'][1]:.4f} ms, layout (ii) "
-                  f"{times['ii'][0]:.4f} / {times['ii'][1]:.4f} ms {tag}")
+                  f"{k1['ctas_per_sm']} CTAs per SM of {32 * k1['warps']} threads {tag}")
     # K6: registers, spills, shared memory and CTAs per SM
-    from snappy_tpu_torch.testing import mma_layouts
-
-    k6 = mma_layouts.kernel_params(_build.cuda_lib())
-    k6_regs = mma_layouts.registers(_build.cuda_build_log()).get(mma_layouts.PACKAGE, {})
+    k6 = crc32c_mma.kernel_params(_build.cuda_lib())
+    k6_regs = _build.ptxas_usage(log, "crc32c_mma_kernel")
     for row in rows:
         if row["name"] == "crc32c_mma":
             row.update({**k6_regs, "ctas_per_sm": k6["ctas_per_sm"], "smem_bytes": k6["smem_bytes"]})
@@ -2188,7 +2173,7 @@ def main() -> None:
     fn, ex_args = entry.entry()
     assert all(a.device == dev for a in ex_args), "entry()'s example arguments are not on the card"
     _, cpu_args = entry.entry("cpu")
-    full = engine._split_blocks(np.frombuffer(payload, dtype=np.uint8), dev)
+    full = engine.split_frames(np.frombuffer(payload, dtype=np.uint8), dev)
     # the engine's framed streams of the payload on each route: stored CRCs
     # and compressed chunk bodies
     route_streams = {"scalar": stream, "array": arr_framed[1]}

@@ -3,13 +3,14 @@ assembly, and the routing to the host backend.
 
 JAX counterpart: snappy_tpu/engine.py: ``raw_compress``,
 ``raw_compress_batch``, ``raw_uncompress``, ``raw_uncompress_batch``,
-``_split_blocks``, ``framed_compress``, ``framed_uncompress``,
-``framed_uncompress_chunks``, ``framed_uncompress_chunks_into``,
-``_framed_uncompress_device``, ``_scan_failure_reason`` and
-``masked_crc32c``.  Each public function takes ``backend`` (None: the
-configured one, see config.py); on ``host`` it calls the native runtime
-(ops/host_codec.py) where the JAX engine does, and ``device`` matters
-only on the device backend.
+``_split_blocks`` (``split_frames``), ``framed_compress``,
+``framed_uncompress``, ``framed_uncompress_chunks``,
+``framed_uncompress_chunks_into``, ``_framed_uncompress_device`` and
+``masked_crc32c``; its ``_scan_failure_reason`` is
+``formats.framing.scan_failure_reason``.  Each public function takes
+``backend`` (None: the configured one, see config.py); on ``host`` it
+calls the native runtime (ops/host_codec.py) where the JAX engine does,
+and ``device`` matters only on the device backend.
 
 Each call launches each kernel once over all its rows: the JAX engine's
 512-chunk slabs and power-of-two shape buckets were there to bound TPU
@@ -28,13 +29,21 @@ do not depend on either).  ``level`` is ignored there, as in the JAX
 engine.  K1 takes the CRCs on both routes.  A failure on the array route
 raises: nothing falls back to the kernels.
 
+An encode's stages are the layer's interface to its callers (the flagship
+step in entry.py and the sharded encodes in parallel/mesh.py):
+``split_frames`` stages a payload's frames, ``encode_frames`` launches K1
+and the encoder over them, ``pack_rows`` packs the encoded rows on the
+card and ``read_streams`` brings them back; ``formats.framing.frame_stream``
+writes the framed stream from them.
+
 The framed paths' stages are telemetry spans (telemetry.py):
 ``engine.scan``, ``engine.decode`` (the device part of a framed decode),
 ``engine.stage`` (host staging of bodies and rows), ``engine.upload``,
-``read.engine`` (the read-backs), ``engine.assemble`` and
-``engine.tobytes``; the raw batch decode's are ``engine.decode_batch``
-around ``engine.plan``, ``engine.stage``, ``engine.upload``,
-``read.engine`` and ``engine.assemble``.
+``read.engine`` (the read-backs: a framed encode's CRCs, packed bytes
+and totals are its 3), ``engine.assemble`` and ``engine.tobytes``; the
+raw batch decode's are ``engine.decode_batch`` around ``engine.plan``,
+``engine.stage``, ``engine.upload``, ``read.engine`` and
+``engine.assemble``.
 """
 
 from __future__ import annotations
@@ -68,9 +77,10 @@ def _slab_rows(width: int) -> int:
     return max(1, _ARRAY_SLAB // width)
 
 
-def _split_blocks(arr: np.ndarray, dev: torch.device):
-    """64 KiB frames of ``arr`` as (uint8 [nf, 65536] zero-padded, int32
-    lengths [nf]) on ``dev``: one host copy, one upload."""
+def split_frames(arr: np.ndarray, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 64 KiB frames of ``arr`` as (uint8 [nf, 65536] zero-padded, int32
+    lengths [nf]) on ``dev``, at least one frame: one host copy, one upload.
+    The rows ``encode_frames`` takes, for the framed and sharded encodes."""
     n = len(arr)
     nf = max(1, -(-n // _BLOCK))
     with telemetry.span("engine.stage"):
@@ -80,6 +90,58 @@ def _split_blocks(arr: np.ndarray, dev: torch.device):
         flens[-1] = n - (nf - 1) * _BLOCK
     with telemetry.span("engine.upload"):
         return host.view(nf, _BLOCK).to(dev), torch.from_numpy(flens).to(dev)
+
+
+def encode_frames(
+    frames: torch.Tensor, flens: torch.Tensor, level: int = 1, crc: bool = True,
+    width: int = _MAX_COMP_BLOCK,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The device stage of an encode: of the blocks ``frames[i, :flens[i]]``
+    (uint8 [N, B], B <= 65536, int32 lengths, on one device), the masked
+    CRC32C of each (K1, where ``crc``; else None), and its raw tag stream
+    as (uint8 [N, W] enc, int32 totals): K3 at ``level`` (W = ENC_CAP),
+    or on the array route the array encoder over slabs of rows into W =
+    ``width`` columns, ``level`` ignored (engine.py:234-236, :596-598).
+    Launches only: no read, no copy to the host, no synchronize.  Returns
+    (crcs, enc, totals) on the frames' device, row i's stream in ``enc[i,
+    :totals[i]]``."""
+    crcs = crc32c.masked_crc32c_chunks(frames, flens) if crc else None
+    if not _array_route():
+        enc, totals = encode_blocks.encode_blocks(frames, flens, level)
+        return crcs, enc, totals
+    n = frames.shape[0]
+    enc = torch.empty((n, width), dtype=torch.uint8, device=frames.device)
+    totals = torch.empty(n, dtype=torch.int32, device=frames.device)
+    col = torch.arange(frames.shape[1], device=frames.device)
+    step = _slab_rows(width)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        # the array encoder's match lengths see the bytes past a block's
+        # end before they are cut to it: zero them, as the JAX engine pads
+        block = frames[lo:hi].masked_fill(col >= flens[lo:hi, None], 0)
+        enc[lo:hi], totals[lo:hi] = encode_array.encode_blocks(block, flens[lo:hi], width)
+    return crcs, enc, totals
+
+
+def pack_rows(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The first ``lens[k]`` bytes of each row of ``rows`` (uint8 [N, W]),
+    end to end in row order, on the rows' device: what a read-back or an
+    all-gather of the rows needs to move, and no more."""
+    keep = torch.arange(rows.shape[1], device=rows.device) < lens[:, None]
+    return rows.masked_select(keep)
+
+
+def read_streams(enc: torch.Tensor, totals: torch.Tensor) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``encode_frames``' streams on the host as (buf, starts, totals): row
+    k's bytes are ``buf[starts[k] : starts[k] + totals[k]]``.  The rows are
+    packed on the card (``pack_rows``), so one copy brings back exactly the
+    encoded bytes, and one more the totals; the caller's ``read.engine``
+    span holds both reads."""
+    buf = pack_rows(enc, totals).cpu().numpy()
+    totals = totals.cpu().numpy().astype(np.int64)
+    starts = np.zeros(len(totals), dtype=np.int64)
+    np.cumsum(totals[:-1], out=starts[1:])
+    return buf, starts, totals
 
 
 # ---------------------------------------------------------------------------
@@ -136,44 +198,13 @@ def raw_compress_batch(
         n = len(datas[i])
         flat[r0 * _BLOCK : r0 * _BLOCK + n] = np.frombuffer(datas[i], dtype=np.uint8)
         lens[r0 + k - 1] = n - (k - 1) * _BLOCK
-    enc, enc_len = _encode_rows(host.to(dev), torch.from_numpy(lens).to(dev), level)
-    # Each row's bytes, concatenated in row order on the device: one copy
-    # of exactly the encoded bytes to the host.
-    streams = _pack_rows(enc, enc_len).cpu().numpy()
-    ends = np.cumsum(enc_len.cpu().numpy().astype(np.int64))
+    _, enc, totals = encode_frames(host.to(dev), torch.from_numpy(lens).to(dev), level, crc=False)
+    with telemetry.span("read.engine", reads=2):
+        streams, starts, totals = read_streams(enc, totals)
     for i, r0, k in plan:
-        lo = int(ends[r0 - 1]) if r0 else 0
-        results[i] = varint.encode_uint32(len(datas[i])) + streams[lo : ends[r0 + k - 1]].tobytes()
+        lo, hi = starts[r0], starts[r0 + k - 1] + totals[r0 + k - 1]
+        results[i] = varint.encode_uint32(len(datas[i])) + streams[lo:hi].tobytes()
     return results
-
-
-def _encode_rows(rows: torch.Tensor, lens: torch.Tensor, level: int, width: int = _MAX_COMP_BLOCK):
-    """The tag streams of the blocks in ``rows`` (uint8 [N, B], B <= 65536,
-    int32 lengths, on one device) as (uint8 [N, W], int32 lengths): K3 at
-    ``level`` (W = ENC_CAP), or on the array route the array encoder over
-    slabs of rows into W = ``width`` columns, ``level`` ignored
-    (engine.py:234-236, :596-598)."""
-    if not _array_route():
-        return encode_blocks.encode_blocks(rows, lens, level)
-    n = rows.shape[0]
-    enc = torch.empty((n, width), dtype=torch.uint8, device=rows.device)
-    totals = torch.empty(n, dtype=torch.int32, device=rows.device)
-    col = torch.arange(rows.shape[1], device=rows.device)
-    step = _slab_rows(width)
-    for lo in range(0, n, step):
-        hi = min(n, lo + step)
-        # the array encoder's match lengths see the bytes past a block's
-        # end before they are cut to it: zero them, as the JAX engine pads
-        block = rows[lo:hi].masked_fill(col >= lens[lo:hi, None], 0)
-        enc[lo:hi], totals[lo:hi] = encode_array.encode_blocks(block, lens[lo:hi], width)
-    return enc, totals
-
-
-def _pack_rows(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """The first ``lens[k]`` bytes of each row, end to end, on the rows'
-    device."""
-    keep = torch.arange(rows.shape[1], device=rows.device) < lens[:, None]
-    return rows.masked_select(keep)
 
 
 def _declared(data: bytes, max_size: int) -> Tuple[Optional[int], int, str]:
@@ -413,37 +444,15 @@ def framed_compress(
     if config.resolve_backend(backend) == "host":
         return host_codec.framed_compress(data, with_header, level)
     dev = config.resolve_device(device)
-    head = [C.FRAMING_HEADER] if with_header else []
     if not data:
-        return b"".join(head)
-    parts: List[bytes] = head
-    arr = np.frombuffer(data, dtype=np.uint8)
-    frames, flens = _split_blocks(arr, dev)
-    crcs = crc32c.masked_crc32c_chunks(frames, flens)
-    enc, totals = _encode_rows(frames, flens, level)
-    with telemetry.span("read.engine", reads=4):
+        return C.FRAMING_HEADER if with_header else b""
+    frames, flens = split_frames(np.frombuffer(data, dtype=np.uint8), dev)
+    crcs, enc, totals = encode_frames(frames, flens, level)
+    with telemetry.span("read.engine", reads=3):
         crcs = crcs.cpu().numpy()
-        enc = enc.cpu().numpy()
-        totals = totals.cpu().numpy()
-        flens = flens.cpu().numpy()
+        buf, starts, totals = read_streams(enc, totals)
     with telemetry.span("engine.assemble"):
-        for k in range(len(flens)):
-            flen = int(flens[k])
-            crc_bytes = int(crcs[k]).to_bytes(4, "little")
-            # Keep the compressed form only if the encoded block alone (the
-            # varint header excluded, as the reference compares blockLen at
-            # encoder.nim:408) saves >= 1/8 of the frame, and the frame was
-            # big enough to try (encoder.nim:401-426).
-            if flen >= C.MIN_NON_LITERAL_BLOCK_SIZE and int(totals[k]) <= flen - flen // 8:
-                blob = varint.encode_uint32(flen) + enc[k, : totals[k]].tobytes()
-                parts.append(framing.encode_frame_header(C.CHUNK_COMPRESSED, 4 + len(blob)))
-                parts.append(crc_bytes)
-                parts.append(blob)
-            else:
-                parts.append(framing.encode_frame_header(C.CHUNK_UNCOMPRESSED, 4 + flen))
-                parts.append(crc_bytes)
-                parts.append(data[k * _BLOCK : k * _BLOCK + flen])
-        return b"".join(parts)
+        return framing.frame_stream(data, crcs, buf, starts, totals, with_header)
 
 
 def masked_crc32c(
@@ -687,7 +696,7 @@ def framed_uncompress(
         chunks = framing.scan_frames(data, start)
     if chunks is None:
         # Distinguish the unskippable-reserved case for error parity.
-        return None, _scan_failure_reason(data, start)
+        return None, framing.scan_failure_reason(data, start)
     total = sum(c.uncompressed_len for c in chunks)
     if total > max_size:
         return None, "too_large"
@@ -699,17 +708,3 @@ def framed_uncompress(
         return None, reason
     with telemetry.span("engine.tobytes"):
         return out_arr[:written].tobytes(), "ok"
-
-
-def _scan_failure_reason(data: bytes, start: int) -> str:
-    """Re-walk headers to classify a scan failure (invalid vs unknown chunk)."""
-    n = len(data)
-    read = start
-    while n - read >= 4:
-        cid, data_len = framing.decode_frame_header(data[read : read + 4])
-        if n - read < data_len + 4:
-            return "invalid"
-        if C.CHUNK_RESERVED_UNSKIPPABLE_LO <= cid <= C.CHUNK_RESERVED_UNSKIPPABLE_HI:
-            return "unknown_chunk"
-        read += 4 + data_len
-    return "invalid"

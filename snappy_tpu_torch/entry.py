@@ -53,7 +53,6 @@ import torch.multiprocessing as mp
 from . import api, config, engine, telemetry
 from .formats import constants as C
 from .formats import framing
-from .ops import crc32c
 from .parallel import mesh as pmesh
 from .parallel import multihost
 
@@ -79,16 +78,16 @@ def step(frames_u8: torch.Tensor, flens: torch.Tensor):
     flens: int32 [N].  Returns the masked CRC32C of each frame (uint32
     [N]), the raw tag stream of each frame at level 1 (uint8 [N,
     max_comp(B)], frame i's in ``enc[i, :totals[i]]``) and ``totals``
-    (int32 [N]), on the frames' device: K1, then K3 or, off the ``scalar``
-    route, the array encoder.  ``enc`` is the encoder's own buffer: at B =
-    65536 the whole of K3's rows, below it a view of their first columns."""
+    (int32 [N]), on the frames' device: ``engine.encode_frames``, K1, then
+    K3 or, off the ``scalar`` route, the array encoder.  ``enc`` is the
+    encoder's own buffer: at B = 65536 the whole of K3's rows, below it a
+    view of their first columns."""
     with telemetry.span("entry.step"):
         b = frames_u8.shape[1]
         if b > C.MAX_BLOCK_LEN:
             raise ValueError(f"frames of {b} bytes: the step takes at most {C.MAX_BLOCK_LEN}")
         width = max_comp(b)
-        crcs = crc32c.masked_crc32c_chunks(frames_u8, flens)
-        enc, totals = engine._encode_rows(frames_u8, flens, 1, width)
+        crcs, enc, totals = engine.encode_frames(frames_u8, flens, 1, width=width)
         return crcs, enc[:, :width], totals
 
 

@@ -2,7 +2,10 @@
 
 JAX counterpart: snappy_tpu/formats/framing.py.  A copy, except that a
 failed build of the native header pass behind ``scan_frames`` raises
-instead of falling back to the Python walk.
+instead of falling back to the Python walk, and that two pieces of
+format knowledge the JAX package keeps in its engine live here:
+``scan_failure_reason`` (snappy_tpu/engine.py ``_scan_failure_reason``)
+and ``frame_stream``, the chunk writer of ``framed_compress``.
 
 Spec parity with nim-snappy snappy/codec.nim:129-214 (``uncompressedLen``,
 ``decodeFrameHeader``, ``isSnappyFramedStream``, ``uncompressedLenFramed``).
@@ -122,6 +125,47 @@ def scan_frames(data, start: int = 0) -> Optional[List[ChunkInfo]]:
         chunks.append(ChunkInfo(cid, read, data_pos, data_len, unc))
         read += 4 + data_len
     return chunks
+
+
+def scan_failure_reason(data, start: int) -> str:
+    """Why ``scan_frames(data, start)`` failed: walk the chunk headers again
+    and tell a reserved unskippable chunk (``unknown_chunk``) from any other
+    fault (``invalid``)."""
+    n = len(data)
+    read = start
+    while n - read >= 4:
+        cid, data_len = decode_frame_header(data[read : read + 4])
+        if n - read < data_len + 4:
+            return "invalid"
+        if C.CHUNK_RESERVED_UNSKIPPABLE_LO <= cid <= C.CHUNK_RESERVED_UNSKIPPABLE_HI:
+            return "unknown_chunk"
+        read += 4 + data_len
+    return "invalid"
+
+
+def frame_stream(data, crcs, buf, starts, totals, with_header: bool) -> bytes:
+    """The framed stream of ``data`` (snappy.nim:130-155,
+    encoder.nim:385-426) from what the device stage computed of its 64 KiB
+    frames: frame k's masked CRC ``crcs[k]`` and its encoded block
+    ``buf[starts[k] : starts[k] + totals[k]]`` (uint8, without the varint
+    header).  The stream identifier where ``with_header``, then a chunk a
+    frame: compressed if the frame is at least MIN_NON_LITERAL_BLOCK_SIZE
+    bytes and the encoded block alone (the varint header excluded, as the
+    reference compares blockLen at encoder.nim:408) saves at least 1/8 of
+    it, else stored, the frame's own bytes."""
+    parts = [C.FRAMING_HEADER] if with_header else []
+    n = len(data)
+    for k in range(len(totals)):
+        lo = k * C.MAX_BLOCK_LEN
+        flen = min(C.MAX_BLOCK_LEN, n - lo)
+        total = int(totals[k])
+        crc = int(crcs[k]).to_bytes(4, "little")
+        if flen >= C.MIN_NON_LITERAL_BLOCK_SIZE and total <= flen - flen // 8:
+            blob = varint.encode_uint32(flen) + buf[starts[k] : starts[k] + total].tobytes()
+            parts += [encode_frame_header(C.CHUNK_COMPRESSED, 4 + len(blob)), crc, blob]
+        else:
+            parts += [encode_frame_header(C.CHUNK_UNCOMPRESSED, 4 + flen), crc, data[lo : lo + flen]]
+    return b"".join(parts)
 
 
 def uncompressed_len_framed(data) -> Optional[int]:

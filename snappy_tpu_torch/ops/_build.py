@@ -146,6 +146,26 @@ def cuda_build_log() -> str:
     return logs[-1].read_text() if logs else ""
 
 
+def ptxas_usage(log: str, kernel: str) -> Dict[str, int]:
+    """What ptxas said (``-Xptxas -v``, in a build's log such as
+    ``cuda_build_log()``) of the first entry function whose mangled name
+    holds ``kernel``: its registers a thread (``registers``) and its
+    spill-store bytes (``spill_bytes``); empty where no entry matches."""
+    found: Dict[str, int] = {}
+    inside = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if found:
+                break
+            inside = kernel in line.split("'")[1]
+        elif inside and "bytes spill stores" in line:
+            found["spill_bytes"] = int(line.split("bytes spill stores")[0].split()[-1])
+        elif inside and "Used" in line and "registers" in line:
+            found["registers"] = int(line.split("Used", 1)[1].split("registers")[0])
+            inside = False
+    return found
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the entry point ``stpu_<name>`` with ``args`` and the current
     stream of ``device``, with ``device`` made current where it is not;

@@ -24,6 +24,7 @@ CRCs on the main path.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Tuple
 
@@ -218,6 +219,21 @@ def _launch(chunks_u8: torch.Tensor, lengths: torch.Tensor, out: torch.Tensor) -
         out.data_ptr(),
     )
     telemetry.count("k6.launches")
+
+
+def kernel_params(lib) -> Dict[str, int]:
+    """The kernel's constants, as ``csrc/crc32c_mma.cu`` defines them, read
+    from a build of it (``_build.cuda_lib()`` or ``_build.twin_lib()``): the
+    chunk's bytes, the warps of a CTA, a stripe's bytes, the steps loaded
+    ahead, the shared bytes of a CTA, its CTAs per SM (0 in the twin) and
+    the words of the constants."""
+    fn = lib.stpu_crc32c_mma_params
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p]
+    p = np.zeros(7, dtype=np.int64)
+    fn(p.ctypes.data)
+    keys = ("chunk", "warps", "stripe", "ring", "smem_bytes", "ctas_per_sm", "const_words")
+    return dict(zip(keys, (int(v) for v in p)))
 
 
 def registers_plain(chunks_u8: torch.Tensor) -> np.ndarray:

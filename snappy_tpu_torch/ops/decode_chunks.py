@@ -29,7 +29,8 @@ No write of the kernel leaves a chunk's row or slot, whatever its verdict.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,6 +175,22 @@ def _launch_ragged(comp_u8, comp_offsets, declared, out, out_offsets, width, ok,
     )
     telemetry.count("k2.launches" if width <= CHUNK else "k2.launches_big")
     telemetry.count("k2.launches_ragged")
+
+
+def kernel_params(lib, out_cols: int) -> Dict[str, Union[int, str]]:
+    """The walk's constants and the layout at width ``out_cols``, as
+    ``csrc/decode_chunks.cu`` defines them, read from a build of it
+    (``_build.cuda_lib()``, ``_build.twin_lib()`` or a scratch build): the
+    lookahead of a batch and the input ring in bytes, the bytes a lane
+    moves per piece, and the layout, "a" (the row in shared memory) or "b"
+    (in place)."""
+    fn = lib.stpu_decode_chunks_params
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    p = np.zeros(4, dtype=np.int64)
+    fn(out_cols, p.ctypes.data)
+    return {"lookahead": int(p[0]), "ring": int(p[1]), "piece": int(p[2]),
+            "layout": "a" if p[3] else "b"}
 
 
 def decode_tags(body: bytes, m: int) -> Tuple[bool, int, int, bytes]:

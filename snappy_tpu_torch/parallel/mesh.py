@@ -41,7 +41,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +50,6 @@ import torch.distributed as dist
 from .. import config, engine
 from ..formats import constants as C
 from ..formats import framing, varint
-from ..ops import crc32c
 
 AXIS = "blocks"
 _BLOCK = C.MAX_BLOCK_LEN  # 65536: a frame
@@ -167,8 +166,9 @@ def _gather_bytes(mesh: Mesh, packed: torch.Tensor, per_row: np.ndarray,
 
 
 def _sharded_encode(mesh: Mesh, arr: np.ndarray, with_crc: bool):
-    """This rank's frames through K1 (``with_crc``) and K3 at level 1 (or
-    the array encoder, ``engine._encode_rows``), then the all-gathers.  Returns (buf, starts, totals, crcs), the same on every
+    """This rank's frames through ``engine.encode_frames`` at level 1 (K1
+    where ``with_crc``, then K3 or the array encoder), then the
+    all-gathers.  Returns (buf, starts, totals, crcs), the same on every
     rank: frame k's encoded bytes are ``buf[starts[k] : starts[k] +
     totals[k]]``, its masked CRC ``crcs[k]`` (None without ``with_crc``)."""
     n = len(arr)
@@ -176,17 +176,16 @@ def _sharded_encode(mesh: Mesh, arr: np.ndarray, with_crc: bool):
     bounds = shard_bounds(nf, mesh.size)
     lo, hi = bounds[mesh.rank], bounds[mesh.rank + 1]
     if hi > lo:
-        frames, flens = engine._split_blocks(arr[lo * _BLOCK : min(n, hi * _BLOCK)], mesh.device)
+        frames, flens = engine.split_frames(arr[lo * _BLOCK : min(n, hi * _BLOCK)], mesh.device)
     else:
         frames = torch.empty((0, _BLOCK), dtype=torch.uint8, device=mesh.device)
         flens = torch.empty(0, dtype=torch.int32, device=mesh.device)
-    crcs = crc32c.masked_crc32c_chunks(frames, flens) if with_crc else None
-    enc, totals = engine._encode_rows(frames, flens, 1)
+    crcs, enc, totals = engine.encode_frames(frames, flens, 1, crc=with_crc)
     all_totals = _gather_rows(mesh, "totals", totals, bounds).astype(np.int64)
     all_crcs = None
     if with_crc:
         all_crcs = _gather_rows(mesh, "crcs", crcs.view(torch.int32), bounds).view(np.uint32)
-    buf, starts = _gather_bytes(mesh, engine._pack_rows(enc, totals), all_totals, bounds)
+    buf, starts = _gather_bytes(mesh, engine.pack_rows(enc, totals), all_totals, bounds)
     return buf, starts, all_totals, all_crcs
 
 
@@ -205,27 +204,10 @@ def sharded_framed_compress(data: bytes, mesh: Optional[Mesh] = None) -> bytes:
     """Framed-format compress with the frames split over the mesh: the
     bytes of ``engine.framed_compress(data)`` at level 1."""
     mesh = mesh or default_mesh()
-    n = len(data)
-    parts: List[bytes] = [C.FRAMING_HEADER]
-    if n == 0:
-        return b"".join(parts)
+    if not data:
+        return C.FRAMING_HEADER
     buf, starts, totals, crcs = _sharded_encode(mesh, np.frombuffer(data, dtype=np.uint8), True)
-    for k in range(len(totals)):
-        flen = min(_BLOCK, n - k * _BLOCK)
-        total = int(totals[k])
-        crc_bytes = int(crcs[k]).to_bytes(4, "little")
-        # Threshold on the encoded block alone, varint header excluded
-        # (encoder.nim:408).
-        if flen >= C.MIN_NON_LITERAL_BLOCK_SIZE and total <= flen - flen // 8:
-            blob = varint.encode_uint32(flen) + buf[starts[k] : starts[k] + total].tobytes()
-            parts.append(framing.encode_frame_header(C.CHUNK_COMPRESSED, 4 + len(blob)))
-            parts.append(crc_bytes)
-            parts.append(blob)
-        else:
-            parts.append(framing.encode_frame_header(C.CHUNK_UNCOMPRESSED, 4 + flen))
-            parts.append(crc_bytes)
-            parts.append(data[k * _BLOCK : k * _BLOCK + flen])
-    return b"".join(parts)
+    return framing.frame_stream(data, crcs, buf, starts, totals, True)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +234,7 @@ def sharded_framed_uncompress(
         return None, "invalid"
     chunks = framing.scan_frames(data, len(C.FRAMING_HEADER))
     if chunks is None:
-        return None, engine._scan_failure_reason(data, len(C.FRAMING_HEADER))
+        return None, framing.scan_failure_reason(data, len(C.FRAMING_HEADER))
     arr = np.frombuffer(data, dtype=np.uint8)
 
     jobs = []  # (body lo, body hi, declared, stored crc) of each compressed chunk
@@ -304,7 +286,7 @@ def sharded_framed_uncompress(
         if k is not None:
             return None, "invalid" if all_ok[k] == 0 else "crc"
 
-    buf, starts = _gather_bytes(mesh, engine._pack_rows(out, decl), declared.astype(np.int64), bounds)
+    buf, starts = _gather_bytes(mesh, engine.pack_rows(out, decl), declared.astype(np.int64), bounds)
     result = np.empty(sum(ch.uncompressed_len for ch in chunks), dtype=np.uint8)
     pos = j = v = 0
     for ch in chunks:

@@ -132,7 +132,7 @@ def decode_window(blob, check_integrity: bool, device: config.DeviceLike) -> Ite
         return
     chunks = framing.scan_frames(blob)
     if chunks is None:
-        reason = engine._scan_failure_reason(blob, 0)
+        reason = framing.scan_failure_reason(blob, 0)
         raise MalformedSnappyData(f"invalid framed chunk ({reason})")
     out_buf = _out_buf(sum(c.uncompressed_len for c in chunks))
     w, reason = engine.framed_uncompress_chunks_into(

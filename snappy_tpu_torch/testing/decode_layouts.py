@@ -7,10 +7,10 @@ Layout (a): the output row in shared memory beside the input ring, written
 out at the end (3 CTAs per SM at 64 KiB, 1 at 128 KiB).  Layout (b): the
 row written in place in global memory, only the ring in shared memory.  The
 package kernel takes one of them per shape (``decode_chunks.cu``,
-``dec_row_in_smem``; ``kernel_params`` reads it from a build); this script
-launches both instantiations of the same kernel from one scratch source
-that includes ``ops/csrc/decode_chunks.cu`` unchanged, built twice under
-``build/snappy_tpu_torch/``: as it is, and with the walk's timing hooks
+``dec_row_in_smem``; ``decode_chunks.kernel_params`` reads it from a
+build); this script launches both instantiations of the same kernel from
+one scratch source that includes ``ops/csrc/decode_chunks.cu`` unchanged,
+built twice under ``build/snappy_tpu_torch/``: as it is, and with the walk's timing hooks
 (``STPU_PROF``) defined as ``clock64`` counters in lane 0 around each
 phase of a batch and around the whole walk, and its batch hook
 (``STPU_DEC_BATCH``) counting batches and tags.
@@ -21,14 +21,13 @@ window's, the 8 unsplittable streams of the seeded serving batch.  For each
 shape: every build's verdicts and rows must equal the package kernel's; the
 kernel time of layouts a and b by CUDA events (the mean of ``reps``
 launches after a warm-up, in the order a, b, b, a) and which of them is the
-package kernel's; registers per thread
-(``-Xptxas -v``) and CTAs per SM
+package kernel's; registers per thread (``-Xptxas -v``) and CTAs per SM
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); then the profiled
 layouts' cycles per chunk (the mean, the slowest, the 90th percentile),
 per tag and per batch, split by phase, with tags per batch for the mean
 chunk and the slowest.  Every line names the card and its power limit.
-Needs CUDA; exits nonzero without it.  ``chip_smoke.py`` phase 9 calls
-``measure`` without the profiled build for its layout A/B.
+Needs CUDA; exits nonzero without it.  ``chip_smoke.py`` phase 9 reads
+the package layout's CTAs per SM from ``ctas_per_sm``.
 """
 
 from __future__ import annotations
@@ -106,22 +105,46 @@ STPU_EXPORT int stpu_dec_prof(unsigned long long* host, int reset) {
 """
 
 
-def kernel_params(lib, out_cols: int) -> dict:
-    """The walk's constants and the layout at width ``out_cols``, as
-    ``ops/csrc/decode_chunks.cu`` defines them, read from a build of it
-    (``_build.cuda_lib()``, ``_build.twin_lib()`` or a scratch build): the
-    lookahead of a batch and the input ring in bytes, the bytes a lane
-    moves per piece, and the layout, "a" (the row in shared memory) or "b"
-    (in place)."""
-    import numpy as np
+KERNEL = {"a": "decode_chunks_kernelILb1ELb0E", "b": "decode_chunks_kernelILb0ELb0E"}  # row form's
 
-    fn = lib.stpu_decode_chunks_params
-    fn.restype = None
-    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
-    p = np.zeros(4, dtype=np.int64)
-    fn(out_cols, p.ctypes.data)
-    return {"lookahead": int(p[0]), "ring": int(p[1]), "piece": int(p[2]),
-            "layout": "a" if p[3] else "b"}
+
+def _scratch(profile: bool) -> dict:
+    """The scratch source's builds, as it is ("layouts") and, with
+    ``profile``, with the counters ("profile"): name -> (lib, ptxas log)."""
+    from snappy_tpu_torch.ops import _build
+
+    root = _build.BUILD_DIR / "decode_layouts"
+    root.mkdir(parents=True, exist_ok=True)
+    src = root / "decode_layouts.cu"
+    src.write_text(_SOURCE)
+    deps = [_build.CSRC / "decode_chunks.cu", _build.CSRC / "snappy_common.cuh"]
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    cmd = [_build._nvcc(), *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           f"-I{_build.CSRC}"]
+    link = [_build._nvcc(), *arch, "-shared"]
+    libs = {}
+    builds = (("layouts", []), ("profile", ["-DSTPU_DEC_PROFILE"]))
+    for name, extra in builds[: 2 if profile else 1]:
+        so = _build._build(f"decode_{name}", cmd + extra, link, [src], deps)
+        lib = ctypes.CDLL(str(so))
+        lib.stpu_decode_chunks_layout.argtypes = (_build._ENTRY_POINTS["decode_chunks"][:-1]
+                                                  + [ctypes.c_int, ctypes.c_void_p])
+        lib.stpu_dec_occupancy.argtypes = [ctypes.c_int, ctypes.c_int64]
+        if name == "profile":
+            lib.stpu_dec_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        libs[name] = (lib, so.with_suffix(".log").read_text())
+    return libs
+
+
+def ctas_per_sm(out_cols: int) -> int:
+    """CTAs per SM of the package kernel's layout at width ``out_cols``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from the scratch
+    build)."""
+    from snappy_tpu_torch.ops import _build, decode_chunks
+
+    lib = _scratch(False)["layouts"][0]
+    layout = decode_chunks.kernel_params(_build.cuda_lib(), out_cols)["layout"]
+    return lib.stpu_dec_occupancy(int(layout == "a"), out_cols)
 
 
 def measure(reps: int = 10, profile: bool = True) -> dict:
@@ -145,33 +168,15 @@ def measure(reps: int = 10, profile: bool = True) -> dict:
     ).stdout.strip().splitlines()[0]
     tag = f"[{card}]"
 
-    root = _build.BUILD_DIR / "decode_layouts"
-    root.mkdir(parents=True, exist_ok=True)
-    src = root / "decode_layouts.cu"
-    src.write_text(_SOURCE)
-    deps = [_build.CSRC / "decode_chunks.cu", _build.CSRC / "snappy_common.cuh"]
-    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
-    cmd = [_build._nvcc(), *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           f"-I{_build.CSRC}"]
-    link = [_build._nvcc(), *arch, "-shared"]
-    libs, logs = {}, {}
-    builds = (("layouts", []), ("profile", ["-DSTPU_DEC_PROFILE"]))
-    for name, extra in builds[: 2 if profile else 1]:
-        so = _build._build(f"decode_{name}", cmd + extra, link, [src], deps)
-        logs[name] = so.with_suffix(".log").read_text()
-        lib = ctypes.CDLL(str(so))
-        lib.stpu_decode_chunks_layout.argtypes = (_build._ENTRY_POINTS["decode_chunks"][:-1]
-                                                  + [ctypes.c_int, ctypes.c_void_p])
-        lib.stpu_dec_occupancy.argtypes = [ctypes.c_int, ctypes.c_int64]
-        libs[name] = lib
-    if profile:
-        libs["profile"].stpu_dec_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    built = _scratch(profile)
+    libs = {name: lib for name, (lib, _) in built.items()}
     result = {"registers": {}}
-    for name, log in logs.items():
+    for name, (_, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}:" + line.split("ptxas", 1)[-1])
-        result["registers"][name] = registers(log)
+        result["registers"][name] = {
+            layout: _build.ptxas_usage(log, kernel).get("registers") for layout, kernel in KERNEL.items()}
 
     dev = torch.device("cuda:0")
     nf = payloads.MAIN_PATH_FRAMES
@@ -238,7 +243,7 @@ def measure(reps: int = 10, profile: bool = True) -> dict:
         for layout in ("a", "b", "b", "a"):
             times[layout].append(event_ms("layouts", layout))
         occ = {layout: libs["layouts"].stpu_dec_occupancy(int(layout == "a"), width) for layout in "ab"}
-        package = kernel_params(libs["layouts"], width)["layout"]
+        package = decode_chunks.kernel_params(libs["layouts"], width)["layout"]
         print(f"{shape}: " + "; ".join(
             f"layout {layout} {times[layout][0]:.4f} / {times[layout][1]:.4f} ms, "
             f"{occ[layout]} CTAs per SM" for layout in "ab")
@@ -276,21 +281,6 @@ def measure(reps: int = 10, profile: bool = True) -> dict:
                 "walk_p90": int(np.percentile(walks, 90))}
         del out
     return result
-
-
-def registers(log: str) -> dict:
-    """Registers per thread of the decoder's two instantiations in a
-    build's ``-Xptxas -v`` lines: "a" (the row in shared memory) and "b"
-    (in place)."""
-    found, layout = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            layout = ("a" if "ILb1E" in name else "b") if "decode_chunks_kernel" in name else None
-        elif layout and "Used" in line and "registers" in line:
-            found[layout] = int(line.split("Used", 1)[1].split("registers")[0])
-            layout = None
-    return found
 
 
 def main() -> None:

@@ -856,7 +856,7 @@ def decoder_cases(lookahead: int, ring: int, seed: int = 71) -> List[Tuple[str, 
     """Named (name, tag stream, declared) cases for the chunk decoder's
     batch logic (K2: tags that start in the first ``lookahead`` bytes from
     the cursor, parsed from an input ring of ``ring`` bytes, the constants
-    that ``testing.decode_layouts.kernel_params`` reads from a build of
+    that ``ops.decode_chunks.kernel_params`` reads from a build of
     ``decode_chunks.cu``): a tag header cut by
     the lookahead's end; literals with 1-4 length bytes whose header ends
     past it; literals longer than the ring; copies of the tag just before

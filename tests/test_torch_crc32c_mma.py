@@ -38,7 +38,6 @@ from snappy_tpu.ops import crc32c_jax, crc32c_mxu  # noqa: E402
 
 from snappy_tpu_torch import telemetry  # noqa: E402
 from snappy_tpu_torch.ops import _build, crc32c, crc32c_mma  # noqa: E402
-from snappy_tpu_torch.testing import mma_layouts  # noqa: E402
 from snappy_tpu_torch.testing.payloads import Rand  # noqa: E402
 
 P = crc32c_mma.CHUNK
@@ -303,7 +302,7 @@ def test_twin_matches_plain_property(n, seed, full):
 def test_kernel_params():
     """The geometry and the constants' size that the source defines are the
     wrapper's."""
-    p = mma_layouts.kernel_params(_build.twin_lib())
+    p = crc32c_mma.kernel_params(_build.twin_lib())
     assert (p["chunk"], p["warps"], p["stripe"]) == (P, crc32c_mma.WARPS, crc32c_mma.STRIPE)
     assert p["const_words"] == len(crc32c_mma.consts())
     # the warps' registers by turns, and each warp's slots: the steps ahead

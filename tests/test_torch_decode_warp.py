@@ -38,14 +38,14 @@ from snappy_tpu.ops import host_codec as jax_host_codec  # noqa: E402
 from snappy_tpu_torch import engine  # noqa: E402
 from snappy_tpu_torch.formats import constants as C  # noqa: E402
 from snappy_tpu_torch.ops import _build, decode_chunks, host_codec  # noqa: E402
-from snappy_tpu_torch.testing import decode_layouts, payloads  # noqa: E402
+from snappy_tpu_torch.testing import payloads  # noqa: E402
 
 from test_torch_decode import big_cases, ragged  # noqa: E402
 
 if shutil.which("g++") is None:
     pytest.skip("g++ is not available to build the CPU twin", allow_module_level=True)
 # the walk's constants, as the twin's build of decode_chunks.cu defines them
-PARAMS = decode_layouts.kernel_params(_build.twin_lib(), decode_chunks.MAX_OUT)
+PARAMS = decode_chunks.kernel_params(_build.twin_lib(), decode_chunks.MAX_OUT)
 LOOKAHEAD, RING = PARAMS["lookahead"], PARAMS["ring"]
 CASES = {name: (body, declared) for name, body, declared in payloads.decoder_cases(LOOKAHEAD, RING)}
 WIDTHS = [decode_chunks.CHUNK, decode_chunks.MAX_OUT]

@@ -71,7 +71,7 @@ def jax_entry():
 def full_width():
     """Three seeded 64 KiB frames and a 777-byte tail, zero-padded."""
     p = payloads.mixed_payload(3 * 65536 + 777, seed=5)
-    return engine._split_blocks(np.frombuffer(p, dtype=np.uint8), CPU)
+    return engine.split_frames(np.frombuffer(p, dtype=np.uint8), CPU)
 
 
 def narrow():

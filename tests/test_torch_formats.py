@@ -3,13 +3,15 @@
 snappy_tpu_torch.formats is a copy of snappy_tpu.formats (the JAX package's
 formats import jax through snappy_tpu/__init__.py); these pin the copy to
 the original on hypothesis-fuzzed inputs, and pin that the port imports
-with jax unavailable.
+with jax unavailable.  The frame writer, which the JAX package keeps in its
+engine, is held to chunks built by hand from the format.
 """
 
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -97,6 +99,47 @@ def test_frame_scanning(chunks, tail, header):
 @given(st.integers(min_value=0, max_value=255), st.integers(min_value=0, max_value=(1 << 24) - 1))
 def test_frame_header_pack(cid, length):
     assert F.encode_frame_header(cid, length) == JF.encode_frame_header(cid, length)
+
+
+# (frame length, its encoded block's length, the varint of the frame length
+# where the chunk is compressed, None where it is stored), and with_header
+FRAME_STREAMS = {
+    "saves_an_eighth": ([(65536, 65536 - 8192, b"\x80\x80\x04")], True),
+    "one_byte_more": ([(65536, 65536 - 8192 + 1, None)], True),
+    "below_the_literal_block": ([(16, 2, None)], False),
+    "at_the_literal_block": ([(17, 15, b"\x11")], False),
+    "short_last_frame": ([(65536, 70000, None), (1000, 875, b"\xe8\x07")], True),
+    "empty_with_header": ([], True),
+    "empty_without_header": ([], False),
+}
+
+
+def hand_chunk(cid: int, crc: int, body: bytes) -> bytes:
+    n = 4 + len(body)
+    return bytes([cid, n & 0xFF, (n >> 8) & 0xFF, n >> 16]) + crc.to_bytes(4, "little") + body
+
+
+@pytest.mark.parametrize("case", sorted(FRAME_STREAMS))
+def test_frame_stream_writes_the_chunks_of_the_format(case):
+    """Stream identifier, then per frame: compressed (id 0, CRC, varint of
+    the frame length, encoded block) where the frame is >= 17 bytes and the
+    block saves >= 1/8 of it, else stored (id 1, CRC, the frame)."""
+    frames, with_header = FRAME_STREAMS[case]
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 256, sum(f for f, _, _ in frames), dtype=np.uint8).tobytes()
+    totals = [t for _, t, _ in frames]
+    starts = [3 + sum(t + 5 for t in totals[:k]) for k in range(len(totals))]  # gaps left unread
+    buf = rng.integers(0, 256, starts[-1] + totals[-1] + 5 if frames else 0, dtype=np.uint8)
+    crcs = [0xA0B0C0D0 + k for k in range(len(frames))]
+    want = b"\xff\x06\x00\x00sNaPpY" if with_header else b""
+    pos = 0
+    for k, (flen, total, head) in enumerate(frames):
+        if head is None:
+            want += hand_chunk(0x01, crcs[k], data[pos : pos + flen])
+        else:
+            want += hand_chunk(0x00, crcs[k], head + buf[starts[k] : starts[k] + total].tobytes())
+        pos += flen
+    assert F.frame_stream(data, crcs, buf, starts, totals, with_header) == want
 
 
 def test_imports_without_jax():
